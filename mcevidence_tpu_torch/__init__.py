@@ -1,0 +1,30 @@
+"""mcevidence_tpu_torch — the PyTorch/CUDA port of ``mcevidence_tpu``.
+
+The Heavens et al. (2017, arXiv:1704.03472) kNN marginal-likelihood
+estimator on its refine path: host chain ingestion, burn-in, thinning and
+split, host f64 whitening, the O(N^2 d) nearest-neighbour candidate
+selection in hand-written CUDA kernels on an NVIDIA Hopper GPU, and the
+host f64 refinement and estimator.  It imports torch and numpy, never jax.
+
+The API is exported lazily, so that importing the package stays cheap.
+"""
+
+from ._version import __version__
+
+_EXPORTS = {
+    "MCEvidence": "evidence",
+    "evidence_fn": "evidence",
+    "evidence_with_error": "evidence",
+    "evidence_bootstrap": "evidence",
+}
+
+
+def __getattr__(name):
+    if name in _EXPORTS:
+        import importlib
+        module = importlib.import_module(f".{_EXPORTS[name]}", __name__)
+        return getattr(module, name)
+    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")
+
+
+__all__ = ["__version__", *_EXPORTS]

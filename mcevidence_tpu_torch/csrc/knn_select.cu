@@ -1,0 +1,338 @@
+// Hand-written Hopper kernels for the refine path's kNN candidate selection.
+//
+// Shared contract (the same as the TPU kernels they replace):
+//   q    f32 [nq, DP]      query rows, centred by the wrapper, zero-padded
+//                          from d to DP columns (zero columns add exactly 0)
+//   r    f32 [nr_alloc, DP] reference rows, centred and padded the same way;
+//                          rows at or past the runtime count nr are never read
+//   out  f32 d2 [nq, k] ascending, int32 idx [nq, k]
+//   absent slots (fewer than k candidates) hold +inf and -1
+//   self mode (query row i is reference row i): slot 0 holds (0, i) even when
+//   a duplicate point with a smaller index sits at distance 0
+//
+// Distances are sums of squared differences in f32 FMA on the CUDA cores: no
+// matrix-product identity, so no cancellation, no TF32 and d2 >= 0 by
+// construction.  Candidates are ranked by the 64-bit key
+// (float_bits(d2) << 32) | index, which orders non-negative floats exactly
+// and breaks ties by the smaller index; the selection is exact.
+//
+// Each entry point returns cudaGetLastError() after its launch; it allocates
+// nothing and does not synchronise.
+
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+namespace {
+
+constexpr unsigned long long kEmpty = 0xFFFFFFFFFFFFFFFFull;
+constexpr unsigned kFullMask = 0xFFFFFFFFu;
+
+__device__ __forceinline__ unsigned long long make_key(float d2, int j) {
+    return (static_cast<unsigned long long>(__float_as_uint(d2)) << 32) |
+           static_cast<unsigned>(j);
+}
+
+__device__ __forceinline__ void write_slot(float* out_d2, int* out_idx,
+                                           long long pos,
+                                           unsigned long long key) {
+    if (key == kEmpty) {
+        out_d2[pos] = __int_as_float(0x7F800000);
+        out_idx[pos] = -1;
+    } else {
+        out_d2[pos] = __uint_as_float(static_cast<unsigned>(key >> 32));
+        out_idx[pos] = static_cast<int>(key & 0xFFFFFFFFull);
+    }
+}
+
+template <int DP>
+__device__ __forceinline__ float sq_dist(const float (&qv)[DP],
+                                         const float4* row) {
+    float acc = 0.0f;
+#pragma unroll
+    for (int c4 = 0; c4 < DP / 4; ++c4) {
+        const float4 v = row[c4];
+        float t = qv[4 * c4 + 0] - v.x;
+        acc = fmaf(t, t, acc);
+        t = qv[4 * c4 + 1] - v.y;
+        acc = fmaf(t, t, acc);
+        t = qv[4 * c4 + 2] - v.z;
+        acc = fmaf(t, t, acc);
+        t = qv[4 * c4 + 3] - v.w;
+        acc = fmaf(t, t, acc);
+    }
+    return acc;
+}
+
+// ---------------------------------------------------------------------------
+// knn_select_small_k: counterpart of the TPU kernel K1,
+// mcevidence_tpu/ops/knn_pallas.py:_knn_kernel_packedn (n_tiles=2, reached
+// through knn_select_pallas_packed2), used for k_sel < 14.
+//
+// One thread per query row.  The block streams the reference rows through
+// shared memory in tiles of kTile rows; every thread reads the same row at the
+// same time (a broadcast, no bank conflict).  Each thread keeps its sorted
+// top-KP keys in registers (KP is k rounded up to a power of two, so every
+// index into the list is static) and inserts by one compare-swap pass.
+//
+// Exact, so it meets K1's <= 2^-11 quantisation bound with room to spare.
+//
+// Bound on this card: FP32 CUDA-core work of about 3*d flops per pair plus
+// the key compare, with the reference set (2 MB at N=65536, d=8) held in L2.
+// Tensor-core distance tiles and a TMA ring are later work.
+// ---------------------------------------------------------------------------
+
+constexpr int kSmallThreads = 128;
+constexpr int kTile = 128;
+
+template <int DP, int KP>
+__global__ void __launch_bounds__(kSmallThreads)
+knn_small_k_kernel(const float* __restrict__ q, const float* __restrict__ r,
+                   int nq, int nr, int k, int self_mode,
+                   float* __restrict__ out_d2, int* __restrict__ out_idx) {
+    __shared__ float4 tile[kTile * DP / 4];
+    const int row = blockIdx.x * blockDim.x + threadIdx.x;
+    const bool active = row < nq;
+    const int self_row = (self_mode && active) ? row : -1;
+
+    float qv[DP];
+    const float4* q4 = reinterpret_cast<const float4*>(q);
+#pragma unroll
+    for (int c4 = 0; c4 < DP / 4; ++c4) {
+        const float4 v = active ? q4[(long long)row * (DP / 4) + c4]
+                                : make_float4(0.f, 0.f, 0.f, 0.f);
+        qv[4 * c4 + 0] = v.x;
+        qv[4 * c4 + 1] = v.y;
+        qv[4 * c4 + 2] = v.z;
+        qv[4 * c4 + 3] = v.w;
+    }
+    unsigned long long best[KP];
+#pragma unroll
+    for (int s = 0; s < KP; ++s) best[s] = kEmpty;
+
+    const float4* r4 = reinterpret_cast<const float4*>(r);
+    for (int base = 0; base < nr; base += kTile) {
+        const int rows = min(kTile, nr - base);
+        __syncthreads();
+        for (int t = threadIdx.x; t < rows * (DP / 4); t += blockDim.x)
+            tile[t] = r4[(long long)base * (DP / 4) + t];
+        __syncthreads();
+        if (!active) continue;
+        for (int jj = 0; jj < rows; ++jj) {
+            const int j = base + jj;
+            const unsigned long long key =
+                make_key(sq_dist<DP>(qv, &tile[jj * (DP / 4)]), j);
+            if (key < best[KP - 1] && j != self_row) {
+                best[KP - 1] = key;
+#pragma unroll
+                for (int s = KP - 1; s > 0; --s) {
+                    const unsigned long long a = best[s - 1], b = best[s];
+                    best[s - 1] = a < b ? a : b;
+                    best[s] = a < b ? b : a;
+                }
+            }
+        }
+    }
+    if (!active) return;
+    const long long o = (long long)row * k;
+    int slot = 0;
+    if (self_mode) {
+        out_d2[o] = 0.0f;
+        out_idx[o] = row;
+        slot = 1;
+    }
+#pragma unroll
+    for (int s = 0; s < KP; ++s)
+        if (slot + s < k) write_slot(out_d2, out_idx, o + slot + s, best[s]);
+}
+
+template <int DP, int KP>
+cudaError_t launch_small(const float* q, const float* r, int nq, int nr, int k,
+                         int self_mode, float* out_d2, int* out_idx,
+                         cudaStream_t stream) {
+    const int blocks = (nq + kSmallThreads - 1) / kSmallThreads;
+    knn_small_k_kernel<DP, KP><<<blocks, kSmallThreads, 0, stream>>>(
+        q, r, nq, nr, k, self_mode, out_d2, out_idx);
+    return cudaGetLastError();
+}
+
+template <int DP>
+cudaError_t dispatch_small_k(const float* q, const float* r, int nq, int nr,
+                             int k, int self_mode, float* out_d2, int* out_idx,
+                             cudaStream_t stream) {
+    // keys kept per thread: k, less the self slot, rounded up to 2^m
+    const int keep = self_mode ? k - 1 : k;
+    if (keep <= 1)
+        return launch_small<DP, 1>(q, r, nq, nr, k, self_mode, out_d2, out_idx, stream);
+    if (keep <= 2)
+        return launch_small<DP, 2>(q, r, nq, nr, k, self_mode, out_d2, out_idx, stream);
+    if (keep <= 4)
+        return launch_small<DP, 4>(q, r, nq, nr, k, self_mode, out_d2, out_idx, stream);
+    if (keep <= 8)
+        return launch_small<DP, 8>(q, r, nq, nr, k, self_mode, out_d2, out_idx, stream);
+    if (keep <= 16)
+        return launch_small<DP, 16>(q, r, nq, nr, k, self_mode, out_d2, out_idx, stream);
+    return cudaErrorInvalidValue;
+}
+
+// ---------------------------------------------------------------------------
+// knn_select_large_k: counterpart of the TPU kernels K2,
+// mcevidence_tpu/ops/knn_pallas.py:_knn_kernel_binned_packed, and K3,
+// :_knn_kernel_binned (both reached through knn_select_pallas_binned), used
+// for k_sel >= 14: the refine guard's retry and first passes at kmax >= 10.
+//
+// One warp per query row.  Lane l scans reference rows l, l+32, ... and keeps
+// a private sorted list of up to k keys in dynamic shared memory, laid out
+// [slot][lane] so a warp's accesses fall in distinct banks.  This is K2's
+// lane-bin store with depth k: no candidate is ever lost, so it meets K2's
+// <= 5e-7 loss bound and K3's exact contract, with no 262,144-row cap.  A
+// final merge pops the warp-wide minimum of the list heads k times with
+// __shfl_xor_sync.
+//
+// Bound on this card: the same FP32 CUDA-core distance work as the small-k
+// kernel (3*d flops per pair, reference rows read through L1 from L2), plus
+// the per-lane insertions, which are rare after the first few hundred rows.
+// Tensor-core distance tiles and a TMA ring are later work.
+// ---------------------------------------------------------------------------
+
+template <int DP>
+__global__ void knn_large_k_kernel(const float* __restrict__ q,
+                                   const float* __restrict__ r, int nq, int nr,
+                                   int k, int self_mode,
+                                   float* __restrict__ out_d2,
+                                   int* __restrict__ out_idx) {
+    extern __shared__ unsigned long long lists[];
+    const int lane = threadIdx.x & 31;
+    const int warp = threadIdx.x >> 5;
+    const int row = blockIdx.x * (blockDim.x >> 5) + warp;
+    if (row >= nq) return;  // the whole warp leaves together
+    const int keep = self_mode ? k - 1 : k;
+    const int self_row = self_mode ? row : -1;
+    unsigned long long* list = lists + (long long)warp * keep * 32;
+
+    float qv[DP];
+    const float4* q4 = reinterpret_cast<const float4*>(q) + (long long)row * (DP / 4);
+#pragma unroll
+    for (int c4 = 0; c4 < DP / 4; ++c4) {
+        const float4 v = __ldg(q4 + c4);
+        qv[4 * c4 + 0] = v.x;
+        qv[4 * c4 + 1] = v.y;
+        qv[4 * c4 + 2] = v.z;
+        qv[4 * c4 + 3] = v.w;
+    }
+    for (int s = 0; s < keep; ++s) list[s * 32 + lane] = kEmpty;
+
+    if (keep > 0) {
+        unsigned long long worst = kEmpty;
+        const float4* r4 = reinterpret_cast<const float4*>(r);
+        for (int j = lane; j < nr; j += 32) {
+            float4 rowv[DP / 4];
+#pragma unroll
+            for (int c4 = 0; c4 < DP / 4; ++c4)
+                rowv[c4] = __ldg(r4 + (long long)j * (DP / 4) + c4);
+            const unsigned long long key = make_key(sq_dist<DP>(qv, rowv), j);
+            if (key < worst && j != self_row) {
+                int s = keep - 1;
+                while (s > 0 && list[(s - 1) * 32 + lane] > key) {
+                    list[s * 32 + lane] = list[(s - 1) * 32 + lane];
+                    --s;
+                }
+                list[s * 32 + lane] = key;
+                worst = list[(keep - 1) * 32 + lane];
+            }
+        }
+    }
+    __syncwarp();
+
+    const long long o = (long long)row * k;
+    int slot = 0;
+    if (self_mode) {
+        if (lane == 0) {
+            out_d2[o] = 0.0f;
+            out_idx[o] = row;
+        }
+        slot = 1;
+    }
+    int h = 0;
+    unsigned long long head = keep > 0 ? list[lane] : kEmpty;
+    for (int s = 0; s < keep; ++s) {
+        unsigned long long m = head;
+#pragma unroll
+        for (int off = 16; off > 0; off >>= 1) {
+            const unsigned long long other = __shfl_xor_sync(kFullMask, m, off);
+            m = other < m ? other : m;
+        }
+        // keys are unique (distinct indices), so exactly one lane advances
+        if (m != kEmpty && head == m) {
+            ++h;
+            head = h < keep ? list[h * 32 + lane] : kEmpty;
+        }
+        if (lane == 0) write_slot(out_d2, out_idx, o + slot + s, m);
+    }
+}
+
+constexpr int kLargeMaxWarps = 8;
+constexpr int kLargeSmemTarget = 64 * 1024;
+
+template <int DP>
+cudaError_t dispatch_large_k(const float* q, const float* r, int nq, int nr,
+                             int k, int self_mode, float* out_d2, int* out_idx,
+                             cudaStream_t stream) {
+    const int keep = self_mode ? k - 1 : k;
+    const int per_warp = (keep > 0 ? keep : 1) * 32 * (int)sizeof(unsigned long long);
+    int warps = kLargeSmemTarget / per_warp;
+    warps = warps < 1 ? 1 : (warps > kLargeMaxWarps ? kLargeMaxWarps : warps);
+    const int smem = warps * per_warp;
+    cudaError_t err = cudaFuncSetAttribute(
+        knn_large_k_kernel<DP>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (err != cudaSuccess) return err;
+    const int blocks = (nq + warps - 1) / warps;
+    knn_large_k_kernel<DP><<<blocks, warps * 32, smem, stream>>>(
+        q, r, nq, nr, k, self_mode, out_d2, out_idx);
+    return cudaGetLastError();
+}
+
+using Dispatch = cudaError_t (*)(const float*, const float*, int, int, int, int,
+                                 float*, int*, cudaStream_t);
+
+cudaError_t run(Dispatch d8, Dispatch d16, Dispatch d32, Dispatch d64,
+                const float* q, const float* r, int nq, int nr, int dp, int k,
+                int self_mode, float* out_d2, int* out_idx, void* stream,
+                int device) {
+    cudaError_t err = cudaSetDevice(device);
+    if (err != cudaSuccess) return err;
+    if (nq <= 0 || k <= 0) return cudaSuccess;
+    Dispatch d = dp == 8 ? d8 : dp == 16 ? d16 : dp == 32 ? d32 : dp == 64 ? d64 : nullptr;
+    if (d == nullptr) return cudaErrorInvalidValue;
+    return d(q, r, nq, nr, k, self_mode, out_d2, out_idx,
+             static_cast<cudaStream_t>(stream));
+}
+
+}  // namespace
+
+extern "C" {
+
+// dp (the padded width) is one of 8, 16, 32, 64; 1 <= k, k - self_mode <= 16.
+int knn_select_small_k(const float* q, const float* r, int nq, int nr, int dp,
+                       int k, int self_mode, float* out_d2, int* out_idx,
+                       void* stream, int device) {
+    return static_cast<int>(run(dispatch_small_k<8>, dispatch_small_k<16>,
+                                dispatch_small_k<32>, dispatch_small_k<64>, q,
+                                r, nq, nr, dp, k, self_mode, out_d2, out_idx,
+                                stream, device));
+}
+
+// dp is one of 8, 16, 32, 64; 1 <= k <= 256.
+int knn_select_large_k(const float* q, const float* r, int nq, int nr, int dp,
+                       int k, int self_mode, float* out_d2, int* out_idx,
+                       void* stream, int device) {
+    return static_cast<int>(run(dispatch_large_k<8>, dispatch_large_k<16>,
+                                dispatch_large_k<32>, dispatch_large_k<64>, q,
+                                r, nq, nr, dp, k, self_mode, out_d2, out_idx,
+                                stream, device));
+}
+
+const char* knn_error_string(int code) {
+    return cudaGetErrorString(static_cast<cudaError_t>(code));
+}
+
+}  // extern "C"

@@ -1,0 +1,5 @@
+from .estimator import log_evidence_from_knn_np
+from .knn import exact_knn, refine_knn_f64
+from .knn_hopper import (knn_select_large_k, knn_select_small_k,
+                         knn_select_torch)
+from .whiten import WhitenStats, apply_whiten, covariance, whiten_stats

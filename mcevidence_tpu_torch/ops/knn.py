@@ -1,0 +1,206 @@
+"""Exact k-nearest-neighbour distances: f32 selection on the card, f64 refine.
+
+The counterpart of ``mcevidence_tpu/ops/knn.py`` on the refine path:
+
+* selection: the reference-set-centred f64 coordinates are cast to f32 and
+  k_sel = k + pad candidates per row are selected on ``device``; only their
+  indices come back to the host.
+* refinement: the candidates' distances are recomputed in f64 with the
+  cancellation-free difference form and re-sorted, and a sufficiency guard
+  re-selects once with 4*k_sel+8 candidates when the k-th refined distance
+  sits within 2^-10 of the candidate boundary.
+
+Engines (``engine=``):
+
+* ``"auto"``: the k-dependent kernel dispatch; on a CPU device the kernel
+  wrappers run their plain version.
+* ``"cuda"`` (alias ``"pallas"``): the k-dependent kernel dispatch, small-k
+  kernel below 14 candidates and large-k kernel from there.
+* ``"torch"`` (alias ``"xla"``): the plain PyTorch selection.
+
+Auto-evidence ("self mode", ``ref=None``) keeps the reference's semantics:
+the query point itself is neighbour 0 at distance exactly 0.
+"""
+
+from __future__ import annotations
+
+import logging
+import os
+from typing import Optional
+
+import numpy as np
+import torch
+
+from ..utils.device import resolve_device
+from .knn_hopper import knn_select_cuda, knn_select_torch
+
+logger = logging.getLogger(__name__)
+
+# forced single-kernel engines of the JAX package and the ROADMAP kernel
+# each one waits for
+_PENDING_ENGINES = {
+    "pallas_exact": "K4 (_knn_kernel, exact f32 top-k)",
+    "pallas_packed": "K6 (_knn_kernel_packed)",
+    "pallas_smalld": "K8 (_knn_kernel_packed_smalld)",
+    "pallas_packed2": "K1 as a forced engine (K1 runs only behind the "
+                      "k-dependent 'cuda' dispatch)",
+    "pallas_binned": "K2/K3 as a forced engine (they run only behind the "
+                     "k-dependent 'cuda' dispatch)",
+}
+ENGINES = ("auto", "cuda", "pallas", "torch", "xla") + tuple(_PENDING_ENGINES)
+
+
+def resolve_engine(engine: str) -> str:
+    """Map an engine name onto ``"cuda"`` or ``"torch"``; raises for names
+    whose kernel is not ported yet and for unknown names."""
+    if engine in ("auto", "cuda", "pallas"):
+        return "cuda"
+    if engine in ("torch", "xla"):
+        return "torch"
+    if engine in _PENDING_ENGINES:
+        raise ValueError(
+            f"engine {engine!r} is not ported yet: it waits for the TPU "
+            f"kernel {_PENDING_ENGINES[engine]} (ROADMAP.md, Queue 2); use "
+            "'auto', 'cuda' or 'torch'")
+    raise ValueError(f"unknown engine {engine!r}; expected one of {ENGINES}")
+
+
+def center_f64(query64: np.ndarray,
+               ref64: Optional[np.ndarray] = None):
+    """Subtract the reference-set mean in f64 from both sets.
+
+    Distances are translation-invariant, but a later f64->f32 cast loses
+    |offset|*2^-24 absolute precision per coordinate — fatal for the f32
+    selection ranking of strongly offset chains (whitening does not remove
+    the mean; reference behaviour).  Returns (q_centred, r_centred) where
+    r_centred is q_centred in self mode (``ref64=None``)."""
+    q = np.asarray(query64, np.float64)
+    r = q if ref64 is None else np.asarray(ref64, np.float64)
+    mu = np.mean(r, axis=0)
+    q = q - mu
+    r = q if ref64 is None else r - mu
+    return q, r
+
+
+def guarded_refine_knn_f64(query64, ref64, idx, k, *, self_mode,
+                           reselect=None, _retried=False) -> np.ndarray:
+    """f64 candidate refinement + the candidate-sufficiency guard.
+
+    Refines all candidates in ``idx`` and checks that the k-th refined
+    distance sits inside the candidate boundary by more than the f32/packed
+    ranking noise (~2^-11 relative); on a thin margin, calls
+    ``reselect(k_sel)`` once for a larger candidate set, then warns
+    (near-exact ties leave the evidence unchanged to O(tie gap)).
+    """
+    d_all = _refine_knn_f64_all(query64, ref64, idx, self_mode)
+    d = d_all[:, :k]
+    if d_all.shape[1] > k:
+        boundary = d_all[:, -1]
+        thin = ((d[:, k - 1] > boundary * (1.0 - 2.0 ** -10))
+                & np.isfinite(boundary) & (boundary > 0))
+        if thin.any():
+            if reselect is not None and not _retried:
+                k_sel = d_all.shape[1]
+                logger.info(
+                    "kNN candidate margin thin for %d/%d rows; re-selecting "
+                    "with %d candidates", int(thin.sum()), len(d),
+                    min(4 * k_sel + 8, ref64.shape[0]))
+                idx2 = reselect(min(4 * k_sel + 8, ref64.shape[0]))
+                return guarded_refine_knn_f64(query64, ref64, idx2, k,
+                                              self_mode=self_mode,
+                                              reselect=reselect,
+                                              _retried=True)
+            logger.warning(
+                "kNN candidate margin thin for %d/%d rows (near-tied "
+                "neighbour distances); parity may be limited by genuine "
+                "ties, which leave the evidence unchanged to O(tie gap)",
+                int(thin.sum()), len(d))
+    return d
+
+
+def refine_knn_f64(query64: np.ndarray, ref64: np.ndarray,
+                   idx: np.ndarray, k: int,
+                   self_mode: bool = False) -> np.ndarray:
+    """Exact float64 distances for pre-selected candidates (host, numpy).
+
+    Recomputes ||q - r||^2 with the difference form for every candidate in
+    ``idx`` (Nq, k_sel >= k), re-sorts, and returns the k smallest distances
+    per row as float64.  Cost is O(Nq * k_sel * d) — negligible next to the
+    O(N^2 d) selection sweep.
+    """
+    return _refine_knn_f64_all(query64, ref64, idx, self_mode)[:, :k]
+
+
+# peak host memory one refinement chunk may use for its (rows, k_sel, d)
+# f64 workspace; chunking over query rows keeps the host refine flat in RAM
+_REFINE_CHUNK_BYTES = int(float(os.environ.get(
+    "MCE_REFINE_CHUNK_MB", "256")) * 2 ** 20)
+
+
+def _refine_knn_f64_all(query64, ref64, idx, self_mode) -> np.ndarray:
+    """All candidate distances, refined in f64 and sorted ascending.
+
+    Streams over query rows in ~_REFINE_CHUNK_BYTES chunks: the (rows,
+    k_sel, d) difference workspace is the refine path's only
+    N-proportional host allocation."""
+    idx = np.asarray(idx)
+    nq, k_sel = idx.shape
+    d = query64.shape[1]
+    # diff + einsum intermediates: ~3 live f64 buffers of (chunk, k_sel, d)
+    rows_per_chunk = max(1, _REFINE_CHUNK_BYTES // max(3 * k_sel * d * 8, 1))
+    out = np.empty((nq, k_sel), np.float64)
+    for lo in range(0, nq, rows_per_chunk):
+        hi = min(nq, lo + rows_per_chunk)
+        ic = idx[lo:hi]
+        safe = np.maximum(ic, 0)
+        diff = query64[lo:hi, None, :] - ref64[safe]      # (chunk, k_sel, d)
+        d2 = np.einsum("nkd,nkd->nk", diff, diff)
+        d2[ic < 0] = np.inf
+        if self_mode:
+            d2[ic == np.arange(lo, hi)[:, None]] = 0.0
+        d2.sort(axis=1)
+        out[lo:hi] = d2
+    return np.sqrt(out)
+
+
+def exact_knn(query: np.ndarray, ref: Optional[np.ndarray], k: int,
+              *, pad_candidates: int = 4, engine: str = "auto",
+              device="cuda") -> np.ndarray:
+    """Sorted kNN distances — the refine-path parity pipeline.
+
+    Args:
+      query: (Nq, d) float64 whitened samples.
+      ref:   (Nr, d) float64 whitened reference set, or None for self mode
+             (auto-evidence: ref = query, self match included as column 0).
+      k:     number of distance columns to return.
+      pad_candidates: extra f32-selected candidates per row; guards against
+        f32 rounding flipping the selection boundary before refinement.
+      engine: ``"auto"``, ``"cuda"``/``"pallas"`` or ``"torch"``/``"xla"``
+        (see the module docstring).
+      device: where the selection runs; ``"cuda"`` raises without a card.
+
+    Returns:
+      (Nq, k) float64 sorted ascending distances.
+    """
+    sel = knn_select_cuda if resolve_engine(engine) == "cuda" \
+        else knn_select_torch
+    dev = resolve_device(device)
+    self_mode = ref is None
+    ref64 = query if self_mode else ref
+    nq, nr = query.shape[0], ref64.shape[0]
+    k = min(k, nr)
+    k_sel = min(nr, k + pad_candidates)
+
+    q_np, r_np = center_f64(query, None if self_mode else ref64)
+    q32 = torch.as_tensor(q_np, dtype=torch.float32).to(dev)
+    r32 = q32 if self_mode else torch.as_tensor(
+        r_np, dtype=torch.float32).to(dev)
+
+    def select(ks):
+        return sel(q32, r32, ks, self_mode=self_mode)[1].cpu().numpy()
+
+    idx = select(k_sel)
+    if k_sel < nr:
+        return guarded_refine_knn_f64(q_np, r_np, idx, k,
+                                      self_mode=self_mode, reselect=select)
+    return _refine_knn_f64_all(q_np, r_np, idx, self_mode)[:, :k]

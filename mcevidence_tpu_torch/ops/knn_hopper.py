@@ -1,0 +1,202 @@
+"""kNN candidate selection on the card: kernel wrappers and their plain twin.
+
+Every selection here shares one contract, that of the TPU kernels in
+``mcevidence_tpu/ops/knn_pallas.py``:
+
+* inputs: query (Nq, d) and ref (Nr_alloc, d), and a runtime count ``nr``
+  (default Nr_alloc) of valid reference rows;
+* outputs: d2 (Nq, k) ascending and clamped >= 0, idx (Nq, k) int32, with
+  k clipped to Nr_alloc;
+* absent slots (fewer than k candidates) hold +inf and -1;
+* self mode (query row i is ref row i): slot 0 holds (0, i);
+* rows at or past ``nr`` are never selected and stay out of the centring
+  mean.
+
+``knn_select_torch`` is the plain PyTorch version (the counterpart of
+``mcevidence_tpu.ops.knn.knn_select_xla``): the CPU path, the test oracle,
+and in float64 the brute-force oracle on the card.  ``knn_select_small_k``
+and ``knn_select_large_k`` wrap the hand-written kernels of
+``csrc/knn_select.cu``.  A wrapper given CPU tensors returns the plain
+version; given CUDA tensors it launches its kernel or raises.  Each wrapper
+counts its launches in ``<wrapper>.launches``.
+"""
+
+from __future__ import annotations
+
+from typing import Optional, Tuple
+
+import torch
+
+# limits of the hand-written kernels (csrc/knn_select.cu)
+D_MAX = 64
+SMALL_K_MAX = 16
+LARGE_K_MAX = 256
+# first pass / retry switch of the k-dependent dispatch
+# (mcevidence_tpu/ops/knn.py:330: the packed2 kernel below 14, binned above)
+LARGE_K_FROM = 14
+
+# bytes one plain-version working buffer may take
+_PLAIN_BLOCK_BYTES = 1 << 28
+
+
+def _valid_count(ref: torch.Tensor, nr: Optional[int]) -> int:
+    nr = ref.shape[0] if nr is None else int(nr)
+    if not 0 <= nr <= ref.shape[0]:
+        raise ValueError(f"nr={nr} outside [0, {ref.shape[0]}]")
+    return nr
+
+
+def _masked_mean(ref: torch.Tensor, nr: int) -> torch.Tensor:
+    """Centring mean over the valid rows only (``_mu_masked`` semantics)."""
+    return ref[:nr].sum(dim=0) / max(nr, 1)
+
+
+def knn_select_torch(query: torch.Tensor, ref: torch.Tensor, k: int, *,
+                     self_mode: bool = False, nr: Optional[int] = None
+                     ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Exact kNN selection in plain PyTorch, in the inputs' dtype.
+
+    Distances are sums of squared differences (no matrix-product identity,
+    so duplicates sit at exactly 0), taken over (query chunk, ref block)
+    tiles of at most ``_PLAIN_BLOCK_BYTES``; ``torch.topk`` selects.
+    """
+    nq, d = query.shape
+    nr = _valid_count(ref, nr)
+    k = min(k, ref.shape[0])
+    dtype, dev = query.dtype, query.device
+    d2_out = torch.full((nq, k), float("inf"), dtype=dtype, device=dev)
+    idx_out = torch.full((nq, k), -1, dtype=torch.int32, device=dev)
+    if nq == 0 or k == 0:
+        return d2_out, idx_out
+    mu = _masked_mean(ref, nr)
+    q = query - mu
+    r = ref[:nr] - mu
+    first = 0
+    if self_mode:
+        d2_out[:, 0] = 0.0
+        idx_out[:, 0] = torch.arange(nq, dtype=torch.int32, device=dev)
+        first = 1
+    keep = min(k - first, nr)
+    if keep <= 0:
+        return d2_out, idx_out
+    elem = q.element_size()
+    rows = max(1, min(nq, _PLAIN_BLOCK_BYTES // (max(nr, 1) * elem)))
+    cols = max(1, min(nr, _PLAIN_BLOCK_BYTES // (rows * max(d, 1) * elem)))
+    for lo in range(0, nq, rows):
+        hi = min(nq, lo + rows)
+        qc = q[lo:hi]
+        d2 = torch.cat([((qc[:, None, :] - r[None, c:c + cols]) ** 2).sum(-1)
+                        for c in range(0, nr, cols)], dim=1)
+        if self_mode:
+            own = torch.arange(lo, hi, device=dev)
+            inside = own < nr
+            d2[inside.nonzero().squeeze(1), own[inside]] = float("inf")
+        vals, pos = torch.topk(d2, keep, dim=1, largest=False, sorted=True)
+        pos = torch.where(torch.isinf(vals), -1, pos)
+        d2_out[lo:hi, first:first + keep] = vals
+        idx_out[lo:hi, first:first + keep] = pos.to(torch.int32)
+    return d2_out, idx_out
+
+
+def _check_inputs(query: torch.Tensor, ref: torch.Tensor) -> None:
+    if query.device != ref.device:
+        raise ValueError(f"query on {query.device} but ref on {ref.device}")
+    if query.dim() != 2 or ref.dim() != 2 or query.shape[1] != ref.shape[1]:
+        raise ValueError(f"expected (Nq, d) and (Nr, d), got "
+                         f"{tuple(query.shape)} and {tuple(ref.shape)}")
+    if query.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"unsupported device {query.device}")
+
+
+def _padded_width(d: int) -> int:
+    for dp in (8, 16, 32, 64):
+        if d <= dp:
+            return dp
+    raise ValueError(f"the CUDA kNN kernels take d <= {D_MAX}, got d={d}")
+
+
+def _launch(entry: str, query, ref, k, self_mode, nr):
+    """Centre (masked mean, f32), pad d to the kernel width, allocate the
+    outputs and call the C entry point on the current stream."""
+    from . import _build
+    nq, d = query.shape
+    dp = _padded_width(d)
+    nr = _valid_count(ref, nr)
+    k = min(k, ref.shape[0])
+    if self_mode and nq > ref.shape[0]:
+        raise ValueError("self mode needs every query row to be a ref row")
+    dev = query.device
+    mu = _masked_mean(ref.to(torch.float32), nr)
+    q = torch.zeros((nq, dp), dtype=torch.float32, device=dev)
+    q[:, :d] = query.to(torch.float32) - mu
+    if self_mode and ref is query:
+        r = q
+    else:
+        r = torch.zeros((nr, dp), dtype=torch.float32, device=dev)
+        r[:, :d] = ref[:nr].to(torch.float32) - mu
+    d2 = torch.empty((nq, k), dtype=torch.float32, device=dev)
+    idx = torch.empty((nq, k), dtype=torch.int32, device=dev)
+    if nq == 0 or k == 0:
+        return d2, idx, False
+    lib = _build.load()
+    code = getattr(lib, entry)(
+        q.data_ptr(), r.data_ptr(), nq, nr, dp, k, int(self_mode),
+        d2.data_ptr(), idx.data_ptr(),
+        torch.cuda.current_stream(dev).cuda_stream, dev.index or 0)
+    _build.check(lib, code, entry)
+    return d2, idx, True
+
+
+def knn_select_small_k(query: torch.Tensor, ref: torch.Tensor, k: int, *,
+                       self_mode: bool = False, nr: Optional[int] = None
+                       ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Small-k selection (k <= 16): the counterpart of the TPU kernel K1
+    (``knn_select_pallas_packed2``).  One thread per query row, sorted
+    top-k in registers; exact."""
+    _check_inputs(query, ref)
+    if query.device.type == "cpu":
+        return knn_select_torch(query, ref, k, self_mode=self_mode, nr=nr)
+    if min(k, ref.shape[0]) > SMALL_K_MAX:
+        raise ValueError(f"knn_select_small_k takes k <= {SMALL_K_MAX}, "
+                         f"got k={k}")
+    d2, idx, launched = _launch("knn_select_small_k", query, ref, k,
+                                self_mode, nr)
+    knn_select_small_k.launches += launched
+    return d2, idx
+
+
+def knn_select_large_k(query: torch.Tensor, ref: torch.Tensor, k: int, *,
+                       self_mode: bool = False, nr: Optional[int] = None
+                       ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Large-k selection (k <= 256): the counterpart of the TPU kernels K2
+    and K3 (``knn_select_pallas_binned``).  One warp per query row, a
+    depth-k sorted list per lane in shared memory, a shuffle merge; exact,
+    with no cap on the reference rows."""
+    _check_inputs(query, ref)
+    if query.device.type == "cpu":
+        return knn_select_torch(query, ref, k, self_mode=self_mode, nr=nr)
+    if min(k, ref.shape[0]) > LARGE_K_MAX:
+        raise ValueError(f"knn_select_large_k takes k <= {LARGE_K_MAX}, "
+                         f"got k={k}")
+    d2, idx, launched = _launch("knn_select_large_k", query, ref, k,
+                                self_mode, nr)
+    knn_select_large_k.launches += launched
+    return d2, idx
+
+
+knn_select_small_k.launches = 0
+knn_select_large_k.launches = 0
+
+
+def knn_select_cuda(query: torch.Tensor, ref: torch.Tensor, k: int, *,
+                    self_mode: bool = False, nr: Optional[int] = None
+                    ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The k-dependent dispatch of the refine path: small-k kernel below
+    ``LARGE_K_FROM`` candidates, large-k kernel from there."""
+    sel = knn_select_large_k if k >= LARGE_K_FROM else knn_select_small_k
+    return sel(query, ref, k, self_mode=self_mode, nr=nr)
+
+
+def reset_launch_counts() -> None:
+    knn_select_small_k.launches = 0
+    knn_select_large_k.launches = 0

@@ -1,0 +1,236 @@
+"""The port's kNN selection and refine path against the JAX package.
+
+On the CPU the kernel wrappers run their plain version, ``knn_select_torch``;
+it is held to the Pallas kernels K1 (``knn_select_pallas_packed2``) and K2
+(``knn_select_pallas_binned(packed=True)``) run in interpret mode, as the
+JAX package's own tests run them.  Criterion (scripts/tpu_kernel_cert.py):
+the d2 recomputed in f64 at the returned indices within 2^-10 relative, and
+identical self and absent slots.  The tests marked ``cuda`` hold the
+hand-written kernels to the plain version on the card and skip elsewhere.
+"""
+
+import itertools
+import logging
+
+import numpy as np
+import pytest
+import torch
+
+import jax.numpy as jnp
+from mcevidence_tpu.ops.knn import exact_knn as jax_exact_knn
+from mcevidence_tpu.ops.knn_pallas import (knn_select_pallas_binned,
+                                           knn_select_pallas_packed2)
+from mcevidence_tpu_torch.ops import _build
+from mcevidence_tpu_torch.ops import knn_hopper as kh
+from mcevidence_tpu_torch.ops.knn import exact_knn, resolve_engine
+
+REL_TOL = 2.0 ** -10
+
+
+def f64_d2_at(query, ref, idx):
+    """f64 squared distances at the returned indices (-1 -> +inf), sorted."""
+    q = np.asarray(query, np.float64)
+    r = np.asarray(ref, np.float64)
+    d2 = np.sum((q[:, None, :] - r[np.maximum(idx, 0)]) ** 2, axis=-1)
+    return np.sort(np.where(idx < 0, np.inf, d2), axis=1)
+
+
+def assert_same_selection(query, ref, plain_d2, plain_idx, d2, idx,
+                          self_mode):
+    """A selection agrees with the plain version's: absent and self slots
+    exactly; the f64 d2 at its indices within REL_TOL of the plain d2."""
+    plain_d2, plain_idx = np.asarray(plain_d2), np.asarray(plain_idx)
+    d2, idx = np.asarray(d2), np.asarray(idx)
+    assert d2.shape == plain_d2.shape
+    np.testing.assert_array_equal(idx < 0, plain_idx < 0)
+    np.testing.assert_array_equal(np.isinf(d2), np.isinf(plain_d2))
+    if self_mode:
+        rows = np.arange(len(idx))
+        np.testing.assert_array_equal(idx[:, 0], rows)
+        np.testing.assert_array_equal(plain_idx[:, 0], rows)
+        assert not d2[:, 0].any() and not plain_d2[:, 0].any()
+    want = np.sort(plain_d2.astype(np.float64), axis=1)
+    fin = np.isfinite(want)
+    for at in (idx, plain_idx):
+        got = f64_d2_at(query, ref, at)
+        err = np.abs(got[fin] - want[fin]) / np.maximum(want[fin], 1e-30)
+        assert err.max(initial=0.0) <= REL_TOL
+
+
+def _plain(query, ref, k, self_mode, nr=None):
+    d2, idx = kh.knn_select_torch(torch.from_numpy(query),
+                                  torch.from_numpy(ref), k,
+                                  self_mode=self_mode, nr=nr)
+    return d2.numpy(), idx.numpy()
+
+
+def _lattice(side=8):
+    return np.array(list(itertools.product(range(side), repeat=3)),
+                    np.float32)
+
+
+def _k1_cases():
+    rng = np.random.default_rng(17)
+    x = rng.normal(size=(300, 5)).astype(np.float32)
+    q = rng.normal(size=(130, 4)).astype(np.float32)
+    r = rng.normal(size=(1030, 4)).astype(np.float32)
+    garbage = np.concatenate([r[:300], np.full((100, 4), 1e8, np.float32)])
+    dup = x.copy()
+    dup[1::7] = dup[0::7][: len(dup[1::7])]
+    tiny = np.zeros((64, 4), np.float32)
+    tiny[:3] = rng.normal(size=(3, 4))
+    return {
+        "self": (x, x, 6, True, None),
+        "cross": (q, r, 5, False, None),
+        "self_nr_garbage": (garbage[:300], garbage, 5, True, 300),
+        "cross_nr_garbage": (q, garbage, 5, False, 300),
+        "cross_k_gt_nr": (q[:8], tiny, 5, False, 3),
+        "self_duplicates": (dup, dup, 6, True, None),
+    }
+
+
+K1_CASES = _k1_cases()
+
+
+@pytest.mark.parametrize("case", sorted(K1_CASES))
+def test_plain_matches_pallas_k1(case):
+    query, ref, k, self_mode, nr = K1_CASES[case]
+    want = knn_select_pallas_packed2(jnp.asarray(query), jnp.asarray(ref), k,
+                                     self_mode=self_mode, interpret=True,
+                                     nr=nr)
+    plain = _plain(query, ref, k, self_mode, nr)
+    assert_same_selection(query, ref, *plain, *want, self_mode=self_mode)
+    if nr is not None:
+        assert plain[1].max() < nr
+
+
+@pytest.mark.parametrize("k", [14, 26, 32])
+def test_plain_matches_pallas_k2_on_lattice(k):
+    x = _lattice()
+    want = knn_select_pallas_binned(jnp.asarray(x), jnp.asarray(x), k,
+                                    self_mode=True, interpret=True,
+                                    packed=True)
+    assert_same_selection(x, x, *_plain(x, x, k, True), *want,
+                          self_mode=True)
+
+
+def _knn_inputs(rng, case):
+    if case == "self":
+        return rng.normal(size=(400, 5)), None, 4
+    if case == "cross":
+        return rng.normal(size=(250, 4)), rng.normal(size=(380, 4)), 5
+    if case == "offset":
+        shift = np.array([1e4, -2e4, 3e4, 0.5, -1e3, 7e3])
+        return rng.normal(size=(300, 6)) + shift, None, 3
+    # a 3-D lattice: equidistant neighbours make the guard re-select
+    return _lattice().astype(np.float64), None, 2
+
+
+@pytest.mark.parametrize("engine", ["auto", "cuda", "torch"])
+@pytest.mark.parametrize("case", ["self", "cross", "offset", "lattice"])
+def test_exact_knn_matches_reference(case, engine, caplog):
+    query, ref, k = _knn_inputs(np.random.default_rng(5), case)
+    want = jax_exact_knn(query, ref, k, engine="xla")
+    with caplog.at_level(logging.INFO,
+                         logger="mcevidence_tpu_torch.ops.knn"):
+        got = exact_knn(query, ref, k, engine=engine, device="cpu")
+    np.testing.assert_allclose(got, want, rtol=0, atol=1e-12)
+    retried = [r for r in caplog.records
+               if r.name == "mcevidence_tpu_torch.ops.knn"
+               and "re-selecting with 32 candidates" in r.message]
+    assert len(retried) == (1 if case == "lattice" else 0)
+
+
+def test_cpu_tensors_take_the_plain_version_and_count_nothing():
+    rng = np.random.default_rng(3)
+    x = torch.from_numpy(rng.normal(size=(200, 6)).astype(np.float32))
+    kh.reset_launch_counts()
+    for wrapper, k in ((kh.knn_select_small_k, 7),
+                       (kh.knn_select_large_k, 20)):
+        for self_mode, nr in ((True, None), (False, 150)):
+            got = wrapper(x, x, k, self_mode=self_mode, nr=nr)
+            want = kh.knn_select_torch(x, x, k, self_mode=self_mode, nr=nr)
+            for a, b in zip(got, want):
+                assert torch.equal(a, b)
+    exact_knn(x.double().numpy(), None, 3, engine="cuda", device="cpu")
+    assert kh.knn_select_small_k.launches == 0
+    assert kh.knn_select_large_k.launches == 0
+
+
+@pytest.mark.parametrize("engine,kernel", [
+    ("pallas_exact", "K4"), ("pallas_packed", "K6"), ("pallas_smalld", "K8"),
+    ("pallas_packed2", "K1"), ("pallas_binned", "K2/K3")])
+def test_unported_engines_raise_naming_their_kernel(engine, kernel):
+    with pytest.raises(ValueError, match=kernel):
+        resolve_engine(engine)
+    with pytest.raises(ValueError, match="ROADMAP"):
+        exact_knn(np.zeros((10, 2)), None, 2, engine=engine, device="cpu")
+
+
+def test_engine_aliases_and_unknown_names():
+    assert [resolve_engine(e) for e in ("auto", "cuda", "pallas")] == \
+        ["cuda"] * 3
+    assert [resolve_engine(e) for e in ("torch", "xla")] == ["torch"] * 2
+    with pytest.raises(ValueError, match="unknown engine"):
+        resolve_engine("tpu")
+
+
+def test_cuda_device_without_a_card_raises(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="cuda"):
+        exact_knn(np.zeros((10, 2)), None, 2)
+
+
+def test_failed_build_raises_with_compiler_output(monkeypatch, tmp_path):
+    script = tmp_path / "fake_nvcc"
+    script.write_text("#!/bin/sh\necho 'error: no sm_90a here' >&2\nexit 3\n")
+    script.chmod(0o755)
+    monkeypatch.setattr(_build, "find_nvcc", lambda: str(script))
+    monkeypatch.setattr(_build, "BUILD_DIR", str(tmp_path / "build"))
+    with pytest.raises(RuntimeError, match="no sm_90a here"):
+        _build.build()
+    assert not list((tmp_path / "build").iterdir())
+
+
+# --- on the card ----------------------------------------------------------
+
+@pytest.fixture
+def cuda_device():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (torch.cuda.is_available() is "
+                    "False)")
+    return torch.device("cuda")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", sorted(K1_CASES) + ["lattice_k32"])
+def test_kernels_match_plain_on_card(case, cuda_device):
+    if case == "lattice_k32":
+        query = ref = _lattice()
+        k, self_mode, nr = 32, True, None
+    else:
+        query, ref, k, self_mode, nr = K1_CASES[case]
+    q = torch.from_numpy(query).to(cuda_device)
+    r = q if ref is query else torch.from_numpy(ref).to(cuda_device)
+    want = [t.cpu() for t in kh.knn_select_torch(q, r, k,
+                                                 self_mode=self_mode, nr=nr)]
+    kh.reset_launch_counts()
+    for wrapper in (kh.knn_select_small_k, kh.knn_select_large_k):
+        if wrapper is kh.knn_select_small_k and k > kh.SMALL_K_MAX:
+            continue
+        got = [t.cpu() for t in wrapper(q, r, k, self_mode=self_mode, nr=nr)]
+        torch.cuda.synchronize()
+        assert wrapper.launches == 1
+        assert_same_selection(query, ref, *want, *got, self_mode=self_mode)
+
+
+@pytest.mark.cuda
+def test_exact_knn_on_card_matches_reference(cuda_device):
+    query, _, k = _knn_inputs(np.random.default_rng(5), "lattice")
+    kh.reset_launch_counts()
+    got = exact_knn(query, None, k, device=cuda_device)
+    np.testing.assert_allclose(got, jax_exact_knn(query, None, k,
+                                                  engine="xla"),
+                               rtol=0, atol=1e-12)
+    assert kh.knn_select_small_k.launches == 1
+    assert kh.knn_select_large_k.launches == 1
