@@ -6,8 +6,8 @@ Mirrors the reference CLI flag set (reference MCEvidence.py:1342-1474):
 -pv/--pvolume, --allparams, --cross, --version — with the JAX
 package's additions (--seed, --engine, --precision, --unit-volume-fallback,
 --error, --bootstrap, --parse-cache) and --device, which says where the kNN
-selection runs.  ``--precision device|fast`` and ``--json`` are not ported
-yet and exit 2 with the ROADMAP item they wait for.
+selection runs.  ``--precision fast`` and ``--json`` are not ported yet and
+exit 2 with the ROADMAP item they wait for.
 
 Run as ``python -m mcevidence_tpu_torch <root> [...]``.
 """
@@ -99,7 +99,9 @@ def build_parser() -> ArgumentParser:
     p.add_argument("--precision", default="refine",
                    choices=["device", "refine", "fast"],
                    help="'refine': f32 select + host f64 refinement "
-                        "(sklearn parity ~1e-14); 'device' and 'fast' are "
+                        "(sklearn parity ~1e-14); 'device': f32 select + "
+                        "f64 refinement and reduction on --device, "
+                        "scalars-only fetch (~1e-13 of refine); 'fast' is "
                         "not ported yet")
     p.add_argument("--unit-volume-fallback", action="store_true",
                    help="proceed with prior_volume=1 when metadata files are "

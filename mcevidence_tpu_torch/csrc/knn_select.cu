@@ -1,14 +1,23 @@
-// Hand-written Hopper kernels for the refine path's kNN candidate selection.
+// Hand-written Hopper kernels for the kNN candidate selection.
 //
-// Shared contract (the same as the TPU kernels they replace):
-//   q    f32 [nq, DP]      query rows, centred by the wrapper, zero-padded
-//                          from d to DP columns (zero columns add exactly 0)
-//   r    f32 [nr_alloc, DP] reference rows, centred and padded the same way;
-//                          rows at or past the runtime count nr are never read
-//   out  f32 d2 [nq, k] ascending, int32 idx [nq, k]
+// Shared contract (the same as the TPU kernels they replace), per batch
+// member b = blockIdx.y of a batch of B members laid out back to back:
+//   q    f32 [B, q_rows, DP]  query rows, centred by the wrapper, zero-padded
+//                             from d to DP columns (zero columns add exactly 0)
+//   r    f32 [B, r_rows, DP]  reference rows, centred and padded the same way
+//   nq[b], nr[b]              the member's valid query and reference rows,
+//                             int32 arrays on the device (the counterpart of
+//                             the TPU kernels' SMEM nr_ref[b]); a null array
+//                             means every member has q_rows queries and
+//                             nr_all reference rows
+//   out  f32 d2 [B, q_rows, k] ascending, int32 idx [B, q_rows, k]
+//   reference rows at or past nr[b] are never read; query rows at or past
+//   nq[b] write +inf and -1 into every slot and do no other work
 //   absent slots (fewer than k candidates) hold +inf and -1
 //   self mode (query row i is reference row i): slot 0 holds (0, i) even when
 //   a duplicate point with a smaller index sits at distance 0
+//
+// The unbatched selections are the case B = 1 with null count arrays.
 //
 // Distances are sums of squared differences in f32 FMA on the CUDA cores: no
 // matrix-product identity, so no cancellation, no TF32 and d2 >= 0 by
@@ -26,6 +35,22 @@ namespace {
 
 constexpr unsigned long long kEmpty = 0xFFFFFFFFFFFFFFFFull;
 constexpr unsigned kFullMask = 0xFFFFFFFFu;
+
+// Where batch member b lives and how many of its rows are valid.
+struct Members {
+    int q_rows;          // allocated query rows per member (output rows too)
+    int r_rows;          // allocated reference rows per member
+    const int* nq;       // valid query rows per member, or null: q_rows
+    const int* nr;       // valid reference rows per member, or null: nr_all
+    int nr_all;
+
+    __device__ __forceinline__ int queries(int b) const {
+        return nq ? nq[b] : q_rows;
+    }
+    __device__ __forceinline__ int refs(int b) const {
+        return nr ? nr[b] : nr_all;
+    }
+};
 
 __device__ __forceinline__ unsigned long long make_key(float d2, int j) {
     return (static_cast<unsigned long long>(__float_as_uint(d2)) << 32) |
@@ -64,17 +89,20 @@ __device__ __forceinline__ float sq_dist(const float (&qv)[DP],
 }
 
 // ---------------------------------------------------------------------------
-// knn_select_small_k: counterpart of the TPU kernel K1,
+// knn_select_small_k: counterpart of the TPU kernels K1,
 // mcevidence_tpu/ops/knn_pallas.py:_knn_kernel_packedn (n_tiles=2, reached
-// through knn_select_pallas_packed2), used for k_sel < 14.
+// through knn_select_pallas_packed2), and K5, :_knn_kernel_packed2_batched
+// (the same selection with a batch grid axis), used for k_sel < 14.
 //
-// One thread per query row.  The block streams the reference rows through
-// shared memory in tiles of kTile rows; every thread reads the same row at the
-// same time (a broadcast, no bank conflict).  Each thread keeps its sorted
-// top-KP keys in registers (KP is k rounded up to a power of two, so every
-// index into the list is static) and inserts by one compare-swap pass.
+// One thread per query row, blockIdx.y the batch member.  The block streams
+// the member's reference rows through shared memory in tiles of kTile rows;
+// every thread reads the same row at the same time (a broadcast, no bank
+// conflict).  Each thread keeps its sorted top-KP keys in registers (KP is k
+// rounded up to a power of two, so every index into the list is static) and
+// inserts by one compare-swap pass.
 //
-// Exact, so it meets K1's <= 2^-11 quantisation bound with room to spare.
+// Exact, so it meets K1's and K5's <= 2^-11 quantisation bound with room to
+// spare.
 //
 // Bound on this card: FP32 CUDA-core work of about 3*d flops per pair plus
 // the key compare, with the reference set (2 MB at N=65536, d=8) held in L2.
@@ -87,10 +115,25 @@ constexpr int kTile = 128;
 template <int DP, int KP>
 __global__ void __launch_bounds__(kSmallThreads)
 knn_small_k_kernel(const float* __restrict__ q, const float* __restrict__ r,
-                   int nq, int nr, int k, int self_mode,
+                   Members m, int k, int self_mode,
                    float* __restrict__ out_d2, int* __restrict__ out_idx) {
     __shared__ float4 tile[kTile * DP / 4];
-    const int row = blockIdx.x * blockDim.x + threadIdx.x;
+    const int b = blockIdx.y;
+    const int nq = m.queries(b);
+    const int nr = m.refs(b);
+    q += (long long)b * m.q_rows * DP;
+    r += (long long)b * m.r_rows * DP;
+    out_d2 += (long long)b * m.q_rows * k;
+    out_idx += (long long)b * m.q_rows * k;
+
+    const int first = blockIdx.x * blockDim.x;
+    const int row = first + threadIdx.x;
+    if (row >= nq && row < m.q_rows) {
+        // a padded query row: absent slots, no search
+        for (int s = 0; s < k; ++s)
+            write_slot(out_d2, out_idx, (long long)row * k + s, kEmpty);
+    }
+    if (first >= nq) return;  // the whole block is padding
     const bool active = row < nq;
     const int self_row = (self_mode && active) ? row : -1;
 
@@ -125,9 +168,9 @@ knn_small_k_kernel(const float* __restrict__ q, const float* __restrict__ r,
                 best[KP - 1] = key;
 #pragma unroll
                 for (int s = KP - 1; s > 0; --s) {
-                    const unsigned long long a = best[s - 1], b = best[s];
-                    best[s - 1] = a < b ? a : b;
-                    best[s] = a < b ? b : a;
+                    const unsigned long long a = best[s - 1], c = best[s];
+                    best[s - 1] = a < c ? a : c;
+                    best[s] = a < c ? c : a;
                 }
             }
         }
@@ -146,31 +189,32 @@ knn_small_k_kernel(const float* __restrict__ q, const float* __restrict__ r,
 }
 
 template <int DP, int KP>
-cudaError_t launch_small(const float* q, const float* r, int nq, int nr, int k,
-                         int self_mode, float* out_d2, int* out_idx,
-                         cudaStream_t stream) {
-    const int blocks = (nq + kSmallThreads - 1) / kSmallThreads;
-    knn_small_k_kernel<DP, KP><<<blocks, kSmallThreads, 0, stream>>>(
-        q, r, nq, nr, k, self_mode, out_d2, out_idx);
+cudaError_t launch_small(const float* q, const float* r, int batch,
+                         const Members& m, int k, int self_mode,
+                         float* out_d2, int* out_idx, cudaStream_t stream) {
+    const dim3 grid((m.q_rows + kSmallThreads - 1) / kSmallThreads, batch);
+    knn_small_k_kernel<DP, KP><<<grid, kSmallThreads, 0, stream>>>(
+        q, r, m, k, self_mode, out_d2, out_idx);
     return cudaGetLastError();
 }
 
 template <int DP>
-cudaError_t dispatch_small_k(const float* q, const float* r, int nq, int nr,
-                             int k, int self_mode, float* out_d2, int* out_idx,
+cudaError_t dispatch_small_k(const float* q, const float* r, int batch,
+                             const Members& m, int k, int self_mode,
+                             float* out_d2, int* out_idx,
                              cudaStream_t stream) {
     // keys kept per thread: k, less the self slot, rounded up to 2^m
     const int keep = self_mode ? k - 1 : k;
     if (keep <= 1)
-        return launch_small<DP, 1>(q, r, nq, nr, k, self_mode, out_d2, out_idx, stream);
+        return launch_small<DP, 1>(q, r, batch, m, k, self_mode, out_d2, out_idx, stream);
     if (keep <= 2)
-        return launch_small<DP, 2>(q, r, nq, nr, k, self_mode, out_d2, out_idx, stream);
+        return launch_small<DP, 2>(q, r, batch, m, k, self_mode, out_d2, out_idx, stream);
     if (keep <= 4)
-        return launch_small<DP, 4>(q, r, nq, nr, k, self_mode, out_d2, out_idx, stream);
+        return launch_small<DP, 4>(q, r, batch, m, k, self_mode, out_d2, out_idx, stream);
     if (keep <= 8)
-        return launch_small<DP, 8>(q, r, nq, nr, k, self_mode, out_d2, out_idx, stream);
+        return launch_small<DP, 8>(q, r, batch, m, k, self_mode, out_d2, out_idx, stream);
     if (keep <= 16)
-        return launch_small<DP, 16>(q, r, nq, nr, k, self_mode, out_d2, out_idx, stream);
+        return launch_small<DP, 16>(q, r, batch, m, k, self_mode, out_d2, out_idx, stream);
     return cudaErrorInvalidValue;
 }
 
@@ -179,32 +223,46 @@ cudaError_t dispatch_small_k(const float* q, const float* r, int nq, int nr,
 // mcevidence_tpu/ops/knn_pallas.py:_knn_kernel_binned_packed, and K3,
 // :_knn_kernel_binned (both reached through knn_select_pallas_binned), used
 // for k_sel >= 14: the refine guard's retry and first passes at kmax >= 10.
+// With a batch it is also K5's counterpart at k_sel >= 14 (K5 takes any k,
+// and the grid's thin-margin retries ask for kmax+24 and kmax+104).
 //
-// One warp per query row.  Lane l scans reference rows l, l+32, ... and keeps
-// a private sorted list of up to k keys in dynamic shared memory, laid out
-// [slot][lane] so a warp's accesses fall in distinct banks.  This is K2's
-// lane-bin store with depth k: no candidate is ever lost, so it meets K2's
-// <= 5e-7 loss bound and K3's exact contract, with no 262,144-row cap.  A
-// final merge pops the warp-wide minimum of the list heads k times with
-// __shfl_xor_sync.
+// One warp per query row, blockIdx.y the batch member.  Lane l scans
+// reference rows l, l+32, ... and keeps a private sorted list of up to k keys
+// in dynamic shared memory, laid out [slot][lane] so a warp's accesses fall
+// in distinct banks.  This is K2's lane-bin store with depth k: no candidate
+// is ever lost, so it meets K2's <= 5e-7 loss bound and K3's exact contract,
+// with no 262,144-row cap.  A final merge pops the warp-wide minimum of the
+// list heads k times with __shfl_xor_sync.
 //
 // Bound on this card: the same FP32 CUDA-core distance work as the small-k
 // kernel (3*d flops per pair, reference rows read through L1 from L2), plus
-// the per-lane insertions, which are rare after the first few hundred rows.
-// Tensor-core distance tiles and a TMA ring are later work.
+// the per-lane insertions, which grow with k.  A warp-shared insertion
+// threshold, tensor-core distance tiles and a TMA ring are later work.
 // ---------------------------------------------------------------------------
 
 template <int DP>
 __global__ void knn_large_k_kernel(const float* __restrict__ q,
-                                   const float* __restrict__ r, int nq, int nr,
+                                   const float* __restrict__ r, Members m,
                                    int k, int self_mode,
                                    float* __restrict__ out_d2,
                                    int* __restrict__ out_idx) {
     extern __shared__ unsigned long long lists[];
     const int lane = threadIdx.x & 31;
     const int warp = threadIdx.x >> 5;
+    const int b = blockIdx.y;
     const int row = blockIdx.x * (blockDim.x >> 5) + warp;
-    if (row >= nq) return;  // the whole warp leaves together
+    if (row >= m.q_rows) return;  // the whole warp leaves together
+    const int nq = m.queries(b);
+    const int nr = m.refs(b);
+    q += (long long)b * m.q_rows * DP;
+    r += (long long)b * m.r_rows * DP;
+    const long long o = ((long long)b * m.q_rows + row) * k;
+    if (row >= nq) {
+        // a padded query row: absent slots, no search
+        for (int s = lane; s < k; s += 32)
+            write_slot(out_d2, out_idx, o + s, kEmpty);
+        return;
+    }
     const int keep = self_mode ? k - 1 : k;
     const int self_row = self_mode ? row : -1;
     unsigned long long* list = lists + (long long)warp * keep * 32;
@@ -243,7 +301,6 @@ __global__ void knn_large_k_kernel(const float* __restrict__ q,
     }
     __syncwarp();
 
-    const long long o = (long long)row * k;
     int slot = 0;
     if (self_mode) {
         if (lane == 0) {
@@ -255,18 +312,18 @@ __global__ void knn_large_k_kernel(const float* __restrict__ q,
     int h = 0;
     unsigned long long head = keep > 0 ? list[lane] : kEmpty;
     for (int s = 0; s < keep; ++s) {
-        unsigned long long m = head;
+        unsigned long long mn = head;
 #pragma unroll
         for (int off = 16; off > 0; off >>= 1) {
-            const unsigned long long other = __shfl_xor_sync(kFullMask, m, off);
-            m = other < m ? other : m;
+            const unsigned long long other = __shfl_xor_sync(kFullMask, mn, off);
+            mn = other < mn ? other : mn;
         }
         // keys are unique (distinct indices), so exactly one lane advances
-        if (m != kEmpty && head == m) {
+        if (mn != kEmpty && head == mn) {
             ++h;
             head = h < keep ? list[h * 32 + lane] : kEmpty;
         }
-        if (lane == 0) write_slot(out_d2, out_idx, o + slot + s, m);
+        if (lane == 0) write_slot(out_d2, out_idx, o + slot + s, mn);
     }
 }
 
@@ -274,8 +331,9 @@ constexpr int kLargeMaxWarps = 8;
 constexpr int kLargeSmemTarget = 64 * 1024;
 
 template <int DP>
-cudaError_t dispatch_large_k(const float* q, const float* r, int nq, int nr,
-                             int k, int self_mode, float* out_d2, int* out_idx,
+cudaError_t dispatch_large_k(const float* q, const float* r, int batch,
+                             const Members& m, int k, int self_mode,
+                             float* out_d2, int* out_idx,
                              cudaStream_t stream) {
     const int keep = self_mode ? k - 1 : k;
     const int per_warp = (keep > 0 ? keep : 1) * 32 * (int)sizeof(unsigned long long);
@@ -285,25 +343,29 @@ cudaError_t dispatch_large_k(const float* q, const float* r, int nq, int nr,
     cudaError_t err = cudaFuncSetAttribute(
         knn_large_k_kernel<DP>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
     if (err != cudaSuccess) return err;
-    const int blocks = (nq + warps - 1) / warps;
-    knn_large_k_kernel<DP><<<blocks, warps * 32, smem, stream>>>(
-        q, r, nq, nr, k, self_mode, out_d2, out_idx);
+    const dim3 grid((m.q_rows + warps - 1) / warps, batch);
+    knn_large_k_kernel<DP><<<grid, warps * 32, smem, stream>>>(
+        q, r, m, k, self_mode, out_d2, out_idx);
     return cudaGetLastError();
 }
 
-using Dispatch = cudaError_t (*)(const float*, const float*, int, int, int, int,
-                                 float*, int*, cudaStream_t);
+using Dispatch = cudaError_t (*)(const float*, const float*, int,
+                                 const Members&, int, int, float*, int*,
+                                 cudaStream_t);
 
 cudaError_t run(Dispatch d8, Dispatch d16, Dispatch d32, Dispatch d64,
-                const float* q, const float* r, int nq, int nr, int dp, int k,
-                int self_mode, float* out_d2, int* out_idx, void* stream,
-                int device) {
+                const float* q, const float* r, int batch, int q_rows,
+                int r_rows, const int* nq, const int* nr, int nr_all, int dp,
+                int k, int self_mode, float* out_d2, int* out_idx,
+                void* stream, int device) {
     cudaError_t err = cudaSetDevice(device);
     if (err != cudaSuccess) return err;
-    if (nq <= 0 || k <= 0) return cudaSuccess;
+    if (batch <= 0 || q_rows <= 0 || k <= 0) return cudaSuccess;
+    if (batch > 65535) return cudaErrorInvalidValue;
     Dispatch d = dp == 8 ? d8 : dp == 16 ? d16 : dp == 32 ? d32 : dp == 64 ? d64 : nullptr;
     if (d == nullptr) return cudaErrorInvalidValue;
-    return d(q, r, nq, nr, k, self_mode, out_d2, out_idx,
+    const Members m{q_rows, r_rows, nq, nr, nr_all};
+    return d(q, r, batch, m, k, self_mode, out_d2, out_idx,
              static_cast<cudaStream_t>(stream));
 }
 
@@ -311,24 +373,31 @@ cudaError_t run(Dispatch d8, Dispatch d16, Dispatch d32, Dispatch d64,
 
 extern "C" {
 
-// dp (the padded width) is one of 8, 16, 32, 64; 1 <= k, k - self_mode <= 16.
-int knn_select_small_k(const float* q, const float* r, int nq, int nr, int dp,
-                       int k, int self_mode, float* out_d2, int* out_idx,
-                       void* stream, int device) {
+// Arguments of both entry points:
+//   q, r            [batch, q_rows, dp] and [batch, r_rows, dp] f32
+//   nq, nr          int32 [batch] on the device, or null (q_rows; nr_all)
+//   dp              the padded width, one of 8, 16, 32, 64
+//   out_d2, out_idx [batch, q_rows, k]
+// knn_select_small_k takes 1 <= k, k - self_mode <= 16.
+int knn_select_small_k(const float* q, const float* r, int batch, int q_rows,
+                       int r_rows, const int* nq, const int* nr, int nr_all,
+                       int dp, int k, int self_mode, float* out_d2,
+                       int* out_idx, void* stream, int device) {
     return static_cast<int>(run(dispatch_small_k<8>, dispatch_small_k<16>,
                                 dispatch_small_k<32>, dispatch_small_k<64>, q,
-                                r, nq, nr, dp, k, self_mode, out_d2, out_idx,
-                                stream, device));
+                                r, batch, q_rows, r_rows, nq, nr, nr_all, dp,
+                                k, self_mode, out_d2, out_idx, stream, device));
 }
 
-// dp is one of 8, 16, 32, 64; 1 <= k <= 256.
-int knn_select_large_k(const float* q, const float* r, int nq, int nr, int dp,
-                       int k, int self_mode, float* out_d2, int* out_idx,
-                       void* stream, int device) {
+// knn_select_large_k takes 1 <= k <= 256.
+int knn_select_large_k(const float* q, const float* r, int batch, int q_rows,
+                       int r_rows, const int* nq, const int* nr, int nr_all,
+                       int dp, int k, int self_mode, float* out_d2,
+                       int* out_idx, void* stream, int device) {
     return static_cast<int>(run(dispatch_large_k<8>, dispatch_large_k<16>,
                                 dispatch_large_k<32>, dispatch_large_k<64>, q,
-                                r, nq, nr, dp, k, self_mode, out_d2, out_idx,
-                                stream, device));
+                                r, batch, q_rows, r_rows, nq, nr, nr_all, dp,
+                                k, self_mode, out_d2, out_idx, stream, device));
 }
 
 const char* knn_error_string(int code) {

@@ -8,8 +8,10 @@ is the functional core for users who already hold arrays.  Both mirror
   host ingest (burn/thin/split) -> host f64 whitening -> f32 kNN candidate
   selection on ``device`` -> host f64 refinement -> host f64 estimator
 
-which matches a float64 sklearn/numpy oracle to ~1e-9 in ln Z.  The
-``"device"`` and ``"fast"`` precisions are not ported yet and raise.
+which matches a float64 sklearn/numpy oracle to ~1e-9 in ln Z, and on
+``precision="device"`` (``ops/pipeline.py``), which selects, refines in f64
+and reduces on ``device`` and fetches only kmax+1 scalars (~1e-13 of
+refine).  The ``"fast"`` precision is not ported yet and raises.
 """
 
 from __future__ import annotations
@@ -37,8 +39,6 @@ PRECISIONS = ("refine", "fast", "device")
 COVTYPES = ("all", "single")
 # precisions of the JAX package that wait for a later slice of the port
 _PENDING_PRECISIONS = {
-    "device": "ROADMAP.md Queue 1, item 5 (ops/pipeline.py in 'device' "
-              "precision)",
     "fast": "ROADMAP.md Queue 1, item 6 (ops/pipeline.py in 'fast' "
             "precision)",
 }
@@ -59,7 +59,8 @@ def check_precision(precision: str) -> None:
     if precision in _PENDING_PRECISIONS:
         raise NotImplementedError(
             f"precision={precision!r} is not ported yet; it waits for "
-            f"{_PENDING_PRECISIONS[precision]}. Use precision='refine'.")
+            f"{_PENDING_PRECISIONS[precision]}. Use precision='device' or "
+            "'refine'.")
 
 
 def evidence_fn(samples: np.ndarray,
@@ -84,8 +85,9 @@ def evidence_fn(samples: np.ndarray,
     ``covtype='all'`` whitens with the covariance of all samples (s1+s2),
     ``'single'`` whitens each partition with its own covariance (Jacobian
     from s1) — reference semantics (MCEvidence.py:1034-1037,1052-1054,
-    1080-1086).  ``device`` is where the kNN selection runs: ``"cuda"``
-    (default; raises without a card) or ``"cpu"``.
+    1080-1086).  ``device`` is where the kNN selection (and in ``device``
+    precision the refinement and reduction) runs: ``"cuda"`` (default;
+    raises without a card) or ``"cpu"``.
     """
     kmax = max(2, kmax)
     check_precision(precision)
@@ -103,6 +105,18 @@ def evidence_fn(samples: np.ndarray,
     cross = samples2 is not None
     if cross:
         samples2 = np.atleast_2d(np.asarray(samples2, np.float64))
+    if precision == "device":
+        if prewhiten and (not cross or covtype == "all"):
+            from .ops.pipeline import device_refine_evidence
+            return device_refine_evidence(
+                samples, lnlike, w, samples2=samples2, kmax=kmax,
+                prior_volume=prior_volume, sum_adjusted_weights=sumw,
+                engine=engine, device=device)
+        logger.info(
+            "precision='device' unsupported for cross + covtype='single' "
+            "whitening or prewhiten=False (per-partition stats are "
+            "host-side); falling back to precision='refine' — timings will "
+            "be refine-path timings")
 
     if prewhiten:
         if covtype == "all":
@@ -152,7 +166,8 @@ class MCEvidence:
         reference MCEvidence.py:694).
     :param seed: RNG seed for split / Poisson thinning / random subsampling
         (the reference uses the unseeded global RNG — quirk Q8).
-    :param precision: 'refine' (float64-parity, the only precision ported).
+    :param precision: 'refine' (float64-parity, default) or 'device' (the
+        refinement and reduction on the card too, scalars-only fetch).
     :param engine: kNN selection engine: 'auto', 'cuda' (alias 'pallas':
         the k-dependent kernel dispatch) or 'torch' (alias 'xla': the plain
         PyTorch selection).
@@ -313,6 +328,35 @@ class MCEvidence:
         _check_mode(covtype, COVTYPES, "covtype")
 
         kmax, ndim = self.kmax, self.ndim
+        if (self.precision == "device" and self.brange is None and prewhiten
+                and (not self.split or covtype == "all")):
+            # one batch covering the whole chain; covtype 'all', which for
+            # auto mode coincides with 'single'
+            from .ops.pipeline import device_refine_evidence
+            s, lnl, w = self._get_batch("s1", 0, False)
+            s2 = self._get_batch("s2", 0, False)[0] if self.split else None
+            if pos_lnp:
+                lnl = -lnl
+            t0 = time.perf_counter()
+            out = device_refine_evidence(
+                s, lnl, w, samples2=s2, kmax=kmax,
+                prior_volume=math.exp(log_pv),
+                sum_adjusted_weights=float(
+                    np.sum(self.pair.s1.adjusted_weights)),
+                engine=self.engine, device=self.device)
+            self.timings["fused_s"] = time.perf_counter() - t0
+            if verbose > 0:
+                for k in range(1, kmax):
+                    logger.info("   ln(B)[k=%d] = %s", k, out[k - 1])
+            if info:
+                return out, self.info
+            return out
+        if self.precision == "device":
+            logger.info(
+                "precision='device' unsupported for this request (batched "
+                "brange, prewhiten=False, or cross + covtype='single'); "
+                "falling back to precision='refine'")
+
         mle = np.zeros((self.batch_plan.nbatch, kmax))
         t_whiten = t_knn = t_est = 0.0
 

@@ -95,8 +95,10 @@ def _declare(lib):
     ptr, i32 = ctypes.c_void_p, ctypes.c_int
     for name in ("knn_select_small_k", "knn_select_large_k"):
         fn = getattr(lib, name)
-        # q, r, nq, nr, dp, k, self_mode, out_d2, out_idx, stream, device
-        fn.argtypes = [ptr, ptr, i32, i32, i32, i32, i32, ptr, ptr, ptr, i32]
+        # q, r, batch, q_rows, r_rows, nq, nr, nr_all, dp, k, self_mode,
+        # out_d2, out_idx, stream, device
+        fn.argtypes = [ptr, ptr, i32, i32, i32, ptr, ptr, i32, i32, i32, i32,
+                       ptr, ptr, ptr, i32]
         fn.restype = i32
     lib.knn_error_string.argtypes = [i32]
     lib.knn_error_string.restype = ctypes.c_char_p

@@ -25,6 +25,7 @@ the query point itself is neighbour 0 at distance exactly 0.
 from __future__ import annotations
 
 import logging
+import math
 import os
 from typing import Optional
 
@@ -32,9 +33,37 @@ import numpy as np
 import torch
 
 from ..utils.device import resolve_device
-from .knn_hopper import knn_select_cuda, knn_select_torch
+from .knn_hopper import (knn_select_batched, knn_select_cuda,
+                         knn_select_torch, knn_select_torch_batched)
 
 logger = logging.getLogger(__name__)
+
+BUCKET_QUANTUM = 512
+
+
+def bucket_size(n: int, quantum: int = BUCKET_QUANTUM) -> int:
+    """Smallest row bucket >= n on the {1,1.25,1.5,1.75} x 2^j x quantum
+    grid.  The CUDA kernels take any row count, so nothing is padded to it:
+    the grid driver groups cells by it into chunks."""
+    if n <= quantum:
+        return quantum
+    j = int(math.floor(math.log2(n / quantum)))
+    base = quantum * (1 << j)
+    for m in (1.0, 1.25, 1.5, 1.75, 2.0):
+        b = int(base * m)
+        if b >= n:
+            return b
+    return 2 * base  # unreachable
+
+
+def bucket_size_pow2(n: int, quantum: int = BUCKET_QUANTUM) -> int:
+    """Power-of-two row bucket (>= n), the grid driver's chunking key in
+    ``device`` precision."""
+    b = quantum
+    while b < n:
+        b *= 2
+    return b
+
 
 # forced single-kernel engines of the JAX package and the ROADMAP kernel
 # each one waits for
@@ -63,6 +92,15 @@ def resolve_engine(engine: str) -> str:
             f"kernel {_PENDING_ENGINES[engine]} (ROADMAP.md, Queue 2); use "
             "'auto', 'cuda' or 'torch'")
     raise ValueError(f"unknown engine {engine!r}; expected one of {ENGINES}")
+
+
+def selector(engine: str, batched: bool = False):
+    """The selection an engine runs: the kernel dispatch for ``"cuda"``,
+    the plain version for ``"torch"``; ``batched`` picks the (B, N, d)
+    forms."""
+    if resolve_engine(engine) == "cuda":
+        return knn_select_batched if batched else knn_select_cuda
+    return knn_select_torch_batched if batched else knn_select_torch
 
 
 def center_f64(query64: np.ndarray,
@@ -182,8 +220,7 @@ def exact_knn(query: np.ndarray, ref: Optional[np.ndarray], k: int,
     Returns:
       (Nq, k) float64 sorted ascending distances.
     """
-    sel = knn_select_cuda if resolve_engine(engine) == "cuda" \
-        else knn_select_torch
+    sel = selector(engine)
     dev = resolve_device(device)
     self_mode = ref is None
     ref64 = query if self_mode else ref

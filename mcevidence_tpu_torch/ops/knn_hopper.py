@@ -1,4 +1,4 @@
-"""kNN candidate selection on the card: kernel wrappers and their plain twin.
+"""kNN candidate selection on the card: kernel wrappers and their plain twins.
 
 Every selection here shares one contract, that of the TPU kernels in
 ``mcevidence_tpu/ops/knn_pallas.py``:
@@ -12,10 +12,16 @@ Every selection here shares one contract, that of the TPU kernels in
 * rows at or past ``nr`` are never selected and stay out of the centring
   mean.
 
+The batched selection (the counterpart of K5,
+``knn_select_pallas_packed2_batched``) applies that contract to each member
+b of query (B, Nq, d) and ref (B, Nr, d), with per-member counts ``nr[b]``
+and ``nq[b]``; query rows at or past ``nq[b]`` come back as absent slots.
+
 ``knn_select_torch`` is the plain PyTorch version (the counterpart of
 ``mcevidence_tpu.ops.knn.knn_select_xla``): the CPU path, the test oracle,
-and in float64 the brute-force oracle on the card.  ``knn_select_small_k``
-and ``knn_select_large_k`` wrap the hand-written kernels of
+and in float64 the brute-force oracle on the card; ``knn_select_torch_batched``
+loops it over the members.  ``knn_select_small_k``, ``knn_select_large_k``
+and ``knn_select_batched`` wrap the hand-written kernels of
 ``csrc/knn_select.cu``.  A wrapper given CPU tensors returns the plain
 version; given CUDA tensors it launches its kernel or raises.  Each wrapper
 counts its launches in ``<wrapper>.launches``.
@@ -23,7 +29,7 @@ counts its launches in ``<wrapper>.launches``.
 
 from __future__ import annotations
 
-from typing import Optional, Tuple
+from typing import Optional, Sequence, Tuple, Union
 
 import torch
 
@@ -37,6 +43,8 @@ LARGE_K_FROM = 14
 
 # bytes one plain-version working buffer may take
 _PLAIN_BLOCK_BYTES = 1 << 28
+
+Counts = Union[None, int, Sequence[int], torch.Tensor]
 
 
 def _valid_count(ref: torch.Tensor, nr: Optional[int]) -> int:
@@ -98,6 +106,43 @@ def knn_select_torch(query: torch.Tensor, ref: torch.Tensor, k: int, *,
     return d2_out, idx_out
 
 
+def _member_counts(counts: Counts, batch: int, alloc: int,
+                   name: str) -> list:
+    """Per-member counts as host ints, each checked against ``alloc``."""
+    if counts is None:
+        return [alloc] * batch
+    out = [int(c) for c in torch.as_tensor(counts).reshape(-1).tolist()]
+    if len(out) != batch:
+        raise ValueError(f"{name} has {len(out)} entries for a batch of "
+                         f"{batch}")
+    for c in out:
+        if not 0 <= c <= alloc:
+            raise ValueError(f"{name}={c} outside [0, {alloc}]")
+    return out
+
+
+def knn_select_torch_batched(query: torch.Tensor, ref: torch.Tensor, k: int,
+                             *, self_mode: bool = False, nr: Counts = None,
+                             nq: Counts = None
+                             ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The batched selection in plain PyTorch: ``knn_select_torch`` on each
+    member's first ``nq[b]`` query rows against its first ``nr[b]``
+    reference rows.  Returns (B, Nq, k) d2 and idx, k clipped to Nr."""
+    _check_batched(query, ref, self_mode)
+    bsz, nq_alloc, _ = query.shape
+    nr_b = _member_counts(nr, bsz, ref.shape[1], "nr")
+    nq_b = _member_counts(nq, bsz, nq_alloc, "nq")
+    k = min(k, ref.shape[1])
+    d2 = torch.full((bsz, nq_alloc, k), float("inf"), dtype=query.dtype,
+                    device=query.device)
+    idx = torch.full((bsz, nq_alloc, k), -1, dtype=torch.int32,
+                     device=query.device)
+    for b in range(bsz):
+        d2[b, :nq_b[b]], idx[b, :nq_b[b]] = knn_select_torch(
+            query[b, :nq_b[b]], ref[b], k, self_mode=self_mode, nr=nr_b[b])
+    return d2, idx
+
+
 def _check_inputs(query: torch.Tensor, ref: torch.Tensor) -> None:
     if query.device != ref.device:
         raise ValueError(f"query on {query.device} but ref on {ref.device}")
@@ -108,6 +153,20 @@ def _check_inputs(query: torch.Tensor, ref: torch.Tensor) -> None:
         raise ValueError(f"unsupported device {query.device}")
 
 
+def _check_batched(query: torch.Tensor, ref: torch.Tensor,
+                   self_mode: bool) -> None:
+    if query.device != ref.device:
+        raise ValueError(f"query on {query.device} but ref on {ref.device}")
+    if (query.dim() != 3 or ref.dim() != 3 or query.shape[0] != ref.shape[0]
+            or query.shape[2] != ref.shape[2]):
+        raise ValueError(f"expected (B, Nq, d) and (B, Nr, d), got "
+                         f"{tuple(query.shape)} and {tuple(ref.shape)}")
+    if query.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"unsupported device {query.device}")
+    if self_mode and query.shape[1] > ref.shape[1]:
+        raise ValueError("self mode needs every query row to be a ref row")
+
+
 def _padded_width(d: int) -> int:
     for dp in (8, 16, 32, 64):
         if d <= dp:
@@ -115,10 +174,25 @@ def _padded_width(d: int) -> int:
     raise ValueError(f"the CUDA kNN kernels take d <= {D_MAX}, got d={d}")
 
 
+def _call(entry: str, q, r, d2, idx, *, batch, q_rows, r_rows, nq_dev,
+          nr_dev, nr_all, dp, k, self_mode) -> None:
+    """Call one C entry point of ``csrc/knn_select.cu`` on the current
+    stream; raises on a non-zero cudaError_t."""
+    from . import _build
+    dev = q.device
+    lib = _build.load()
+    code = getattr(lib, entry)(
+        q.data_ptr(), r.data_ptr(), batch, q_rows, r_rows,
+        None if nq_dev is None else nq_dev.data_ptr(),
+        None if nr_dev is None else nr_dev.data_ptr(), nr_all, dp, k,
+        int(self_mode), d2.data_ptr(), idx.data_ptr(),
+        torch.cuda.current_stream(dev).cuda_stream, dev.index or 0)
+    _build.check(lib, code, entry)
+
+
 def _launch(entry: str, query, ref, k, self_mode, nr):
     """Centre (masked mean, f32), pad d to the kernel width, allocate the
-    outputs and call the C entry point on the current stream."""
-    from . import _build
+    outputs and launch the kernel as a batch of one member."""
     nq, d = query.shape
     dp = _padded_width(d)
     nr = _valid_count(ref, nr)
@@ -138,12 +212,8 @@ def _launch(entry: str, query, ref, k, self_mode, nr):
     idx = torch.empty((nq, k), dtype=torch.int32, device=dev)
     if nq == 0 or k == 0:
         return d2, idx, False
-    lib = _build.load()
-    code = getattr(lib, entry)(
-        q.data_ptr(), r.data_ptr(), nq, nr, dp, k, int(self_mode),
-        d2.data_ptr(), idx.data_ptr(),
-        torch.cuda.current_stream(dev).cuda_stream, dev.index or 0)
-    _build.check(lib, code, entry)
+    _call(entry, q, r, d2, idx, batch=1, q_rows=nq, r_rows=nr, nq_dev=None,
+          nr_dev=None, nr_all=nr, dp=dp, k=k, self_mode=self_mode)
     return d2, idx, True
 
 
@@ -184,8 +254,63 @@ def knn_select_large_k(query: torch.Tensor, ref: torch.Tensor, k: int, *,
     return d2, idx
 
 
+def knn_select_batched(query: torch.Tensor, ref: torch.Tensor, k: int, *,
+                       self_mode: bool = False, nr: Counts = None,
+                       nq: Counts = None
+                       ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Batched selection, the counterpart of the TPU kernel K5
+    (``knn_select_pallas_packed2_batched``): one launch over query
+    (B, Nq, d) and ref (B, Nr, d) with per-member counts ``nr`` and ``nq``
+    (sequences of B ints; default Nr and Nq).  The small-k kernel body runs
+    below ``LARGE_K_FROM`` candidates and the large-k body from there, each
+    with the batch member on the grid's y axis and the counts read from
+    int32 arrays on the card.  Returns (B, Nq, k) d2 and idx; k above
+    ``LARGE_K_MAX`` raises on the card."""
+    _check_batched(query, ref, self_mode)
+    if query.device.type == "cpu":
+        return knn_select_torch_batched(query, ref, k, self_mode=self_mode,
+                                        nr=nr, nq=nq)
+    bsz, nq_alloc, d = query.shape
+    nr_alloc = ref.shape[1]
+    k = min(k, nr_alloc)
+    if k > LARGE_K_MAX:
+        raise ValueError(f"knn_select_batched takes k <= {LARGE_K_MAX}, "
+                         f"got k={k}")
+    dp = _padded_width(d)
+    nr_b = _member_counts(nr, bsz, nr_alloc, "nr")
+    nq_b = _member_counts(nq, bsz, nq_alloc, "nq")
+    dev = query.device
+    d2 = torch.empty((bsz, nq_alloc, k), dtype=torch.float32, device=dev)
+    idx = torch.empty((bsz, nq_alloc, k), dtype=torch.int32, device=dev)
+    if bsz == 0 or nq_alloc == 0 or k == 0:
+        return d2, idx
+    nr_dev = torch.tensor(nr_b, dtype=torch.int32, device=dev)
+    nq_dev = torch.tensor(nq_b, dtype=torch.int32, device=dev)
+    # per-member masked mean (``_mu_masked``): rows at or past nr[b] may hold
+    # anything, so they are selected out, not multiplied by zero
+    ref32 = ref.to(torch.float32)
+    ok = (torch.arange(nr_alloc, device=dev)[None, :] < nr_dev[:, None])
+    mu = (torch.where(ok[..., None], ref32, 0.0).sum(dim=1)
+          / nr_dev.clamp(min=1)[:, None].to(torch.float32))[:, None, :]
+    q = torch.zeros((bsz, nq_alloc, dp), dtype=torch.float32, device=dev)
+    q[..., :d] = query.to(torch.float32) - mu
+    if self_mode and ref is query:
+        r = q
+    else:
+        r = torch.zeros((bsz, nr_alloc, dp), dtype=torch.float32, device=dev)
+        r[..., :d] = ref32 - mu
+    entry = ("knn_select_large_k" if k >= LARGE_K_FROM
+             else "knn_select_small_k")
+    _call(entry, q, r, d2, idx, batch=bsz, q_rows=nq_alloc, r_rows=nr_alloc,
+          nq_dev=nq_dev, nr_dev=nr_dev, nr_all=nr_alloc, dp=dp, k=k,
+          self_mode=self_mode)
+    knn_select_batched.launches += 1
+    return d2, idx
+
+
 knn_select_small_k.launches = 0
 knn_select_large_k.launches = 0
+knn_select_batched.launches = 0
 
 
 def knn_select_cuda(query: torch.Tensor, ref: torch.Tensor, k: int, *,
@@ -200,3 +325,4 @@ def knn_select_cuda(query: torch.Tensor, ref: torch.Tensor, k: int, *,
 def reset_launch_counts() -> None:
     knn_select_small_k.launches = 0
     knn_select_large_k.launches = 0
+    knn_select_batched.launches = 0

@@ -62,12 +62,26 @@ def test_cli_matches_reference(toy_root, capsys, args):
         np.testing.assert_allclose(got[key], want[key], rtol=0, atol=1e-9)
 
 
+@pytest.mark.parametrize("args", [
+    ["-k", "3", "--precision", "device"],
+    ["-k", "4", "--cross", "--seed", "1", "--precision", "device"],
+], ids=["auto", "cross"])
+def test_cli_device_precision_matches_reference(toy_root, capsys, args):
+    assert jax_cli.main([toy_root, "-vb", "0", "--engine", "xla"] + args) == 0
+    want = _lnb_lines(capsys.readouterr().out)
+    assert port_cli.main([toy_root, "-vb", "0", "--device", "cpu"]
+                         + args) == 0
+    got = _lnb_lines(capsys.readouterr().out)
+    assert want and got.keys() == want.keys()
+    for key in want:
+        np.testing.assert_allclose(got[key], want[key], rtol=0, atol=1e-9)
+
+
 @pytest.mark.parametrize("args,message", [
     (["--json"], "ROADMAP.md Queue 1, item 8"),
-    (["--precision", "device"], "ROADMAP.md Queue 1, item 5"),
     (["--precision", "fast"], "ROADMAP.md Queue 1, item 6"),
     (["--engine", "pallas_exact"], "K4"),
-], ids=["json", "device", "fast", "pallas_exact"])
+], ids=["json", "fast", "pallas_exact"])
 def test_cli_unported_options_exit_2(toy_root, capsys, args, message):
     assert port_cli.main([toy_root, "--device", "cpu"] + args) == 2
     assert message in capsys.readouterr().err

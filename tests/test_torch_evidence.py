@@ -111,7 +111,18 @@ def test_evidence_bootstrap_matches_reference(cosmomc_root, split):
         np.testing.assert_allclose(a, b, rtol=0, atol=ATOL_REF)
 
 
-@pytest.mark.parametrize("precision", ["device", "fast"])
+def test_device_precision_now_runs():
+    theta, lnl = _chain(5, n=200)
+    want = jx.evidence_fn(theta, lnl, precision="device", engine="xla")
+    got = pt.evidence_fn(theta, lnl, precision="device", device="cpu")
+    np.testing.assert_allclose(got, want, rtol=0, atol=ATOL_REF)
+    mce = pt.MCEvidence({"samples": theta, "loglikes": lnl},
+                        precision="device", device="cpu", verbose=0)
+    np.testing.assert_allclose(mce.evidence(), want, rtol=0, atol=ATOL_REF)
+    assert "fused_s" in mce.timings
+
+
+@pytest.mark.parametrize("precision", ["fast"])
 def test_unported_precisions_raise(precision):
     theta, lnl = _chain(5, n=200)
     with pytest.raises(NotImplementedError, match="ROADMAP"):

@@ -5,8 +5,10 @@ it is held to the Pallas kernels K1 (``knn_select_pallas_packed2``) and K2
 (``knn_select_pallas_binned(packed=True)``) run in interpret mode, as the
 JAX package's own tests run them.  Criterion (scripts/tpu_kernel_cert.py):
 the d2 recomputed in f64 at the returned indices within 2^-10 relative, and
-identical self and absent slots.  The tests marked ``cuda`` hold the
-hand-written kernels to the plain version on the card and skip elsewhere.
+identical self and absent slots.  The batched plain version is held to K5
+(``knn_select_pallas_packed2_batched``) the same way, member by member.  The
+tests marked ``cuda`` hold the hand-written kernels to the plain version on
+the card and skip elsewhere.
 """
 
 import itertools
@@ -19,7 +21,8 @@ import torch
 import jax.numpy as jnp
 from mcevidence_tpu.ops.knn import exact_knn as jax_exact_knn
 from mcevidence_tpu.ops.knn_pallas import (knn_select_pallas_binned,
-                                           knn_select_pallas_packed2)
+                                           knn_select_pallas_packed2,
+                                           knn_select_pallas_packed2_batched)
 from mcevidence_tpu_torch.ops import _build
 from mcevidence_tpu_torch.ops import knn_hopper as kh
 from mcevidence_tpu_torch.ops.knn import exact_knn, resolve_engine
@@ -112,6 +115,109 @@ def test_plain_matches_pallas_k2_on_lattice(k):
                                     packed=True)
     assert_same_selection(x, x, *_plain(x, x, k, True), *want,
                           self_mode=True)
+
+
+K5_TOL = 2.0 ** -11          # K5's packed quantisation bound
+
+
+def _batch(rng, ns, rows, d, garbage=1e8):
+    """(B, rows, d) f32 members whose rows at or past ns[b] hold garbage."""
+    x = rng.normal(size=(len(ns), rows, d)).astype(np.float32)
+    for b, n in enumerate(ns):
+        x[b, n:] = garbage
+    return x
+
+
+def _k5_cases():
+    rng = np.random.default_rng(29)
+    q = _batch(rng, [260, 211, 97], 260, 5)
+    r = _batch(rng, [380, 333, 20], 380, 5)
+    dup = _batch(rng, [150, 120], 150, 3)
+    dup[:, 1::5] = dup[:, 0::5][:, : dup[:, 1::5].shape[1]]
+    return {
+        "self": (q, q, True, [260, 211, 97], [260, 211, 97]),
+        "cross": (q, r, False, [380, 333, 20], [260, 211, 97]),
+        "self_duplicates_d3": (dup, dup, True, [150, 120], [150, 120]),
+    }
+
+
+K5_CASES = _k5_cases()
+
+
+def _unambiguous_rows(d2_next):
+    """Rows whose first k+1 plain d2 are strictly separated by more than
+    the quantisation: any exact or quantised selection must return the
+    same indices in the same order there."""
+    d2 = np.asarray(d2_next, np.float64)
+    with np.errstate(divide="ignore", invalid="ignore"):
+        ratio = d2[:, 1:] / d2[:, :-1]
+    sep = (ratio > 1 + 2 * K5_TOL) | np.isinf(d2[:, 1:])
+    return sep.all(axis=1)
+
+
+@pytest.mark.parametrize("k", [6, 9, 26])
+@pytest.mark.parametrize("case", sorted(K5_CASES))
+def test_plain_batched_matches_pallas_k5(case, k):
+    query, ref, self_mode, nr, nq = K5_CASES[case]
+    want_d2, want_idx = (np.asarray(a) for a in
+                         knn_select_pallas_packed2_batched(
+                             jnp.asarray(query), jnp.asarray(ref), k,
+                             self_mode=self_mode, interpret=True,
+                             nr=np.asarray(nr, np.int32)))
+    got_d2, got_idx = (a.numpy() for a in kh.knn_select_torch_batched(
+        torch.from_numpy(query), torch.from_numpy(ref), k,
+        self_mode=self_mode, nr=nr, nq=nq))
+    assert got_d2.shape == (len(nr), query.shape[1], min(k, ref.shape[1]))
+    checked = 0
+    for b, (n_q, n_r) in enumerate(zip(nq, nr)):
+        gi, wi = got_idx[b, :n_q], want_idx[b, :n_q]
+        np.testing.assert_array_equal(gi < 0, wi < 0)
+        assert gi.max() < n_r and (got_idx[b, n_q:] == -1).all()
+        assert np.isinf(got_d2[b, n_q:]).all()
+        if self_mode:
+            np.testing.assert_array_equal(gi[:, 0], np.arange(n_q))
+        # indices: equal wherever the k+1 nearest are not near-tied
+        nxt = kh.knn_select_torch(torch.from_numpy(query[b, :n_q]),
+                                  torch.from_numpy(ref[b]), k + 1,
+                                  self_mode=self_mode, nr=n_r)[0].numpy()
+        clear = _unambiguous_rows(nxt)
+        np.testing.assert_array_equal(gi[clear], wi[clear])
+        checked += int(clear.sum())
+        # d2: K5 quantises down by <= 2^-11, and its matrix-product
+        # identity leaves an exact duplicate the f32 rounding of |q|^2
+        # (~1e-7 here) instead of 0; at near-ties its indices may differ,
+        # but the f64 d2 at them must not
+        fin = np.isfinite(got_d2[b, :n_q])
+        plain = got_d2[b, :n_q][fin]
+        err = np.abs(np.sort(want_d2[b, :n_q], 1)[fin] - plain)
+        assert (err <= K5_TOL * plain + 1e-6).all()
+        for at in (gi, wi):
+            rel = (np.abs(f64_d2_at(query[b, :n_q], ref[b], at)[fin]
+                          - got_d2[b, :n_q][fin])
+                   / np.maximum(got_d2[b, :n_q][fin], 1e-30))
+            assert rel.max(initial=0.0) <= K5_TOL
+    if "duplicates" not in case:
+        # the index comparison is not vacuous (near-ties grow with k; with
+        # duplicates every neighbourhood holds exact ties)
+        assert checked > 0.25 * sum(nq)
+
+
+def test_batched_wrapper_on_cpu_is_the_plain_loop():
+    query, ref, self_mode, nr, nq = K5_CASES["cross"]
+    q, r = torch.from_numpy(query), torch.from_numpy(ref)
+    kh.reset_launch_counts()
+    d2, idx = kh.knn_select_batched(q, r, 9, self_mode=False, nr=nr, nq=nq)
+    for b in range(len(nr)):
+        want = kh.knn_select_torch(q[b, :nq[b]], r[b], 9, nr=nr[b])
+        assert torch.equal(d2[b, :nq[b]], want[0])
+        assert torch.equal(idx[b, :nq[b]], want[1])
+    assert kh.knn_select_batched.launches == 0
+    with pytest.raises(ValueError, match="nr=400"):
+        kh.knn_select_batched(q, r, 9, nr=[400, 1, 1])
+    with pytest.raises(ValueError, match="entries"):
+        kh.knn_select_batched(q, r, 9, nr=[1, 1])
+    with pytest.raises(ValueError, match=r"\(B, Nq, d\)"):
+        kh.knn_select_batched(q[0], r[0], 9)
 
 
 def _knn_inputs(rng, case):
@@ -234,3 +340,26 @@ def test_exact_knn_on_card_matches_reference(cuda_device):
                                rtol=0, atol=1e-12)
     assert kh.knn_select_small_k.launches == 1
     assert kh.knn_select_large_k.launches == 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k", [6, 9, 26, 106])
+@pytest.mark.parametrize("case", sorted(K5_CASES))
+def test_batched_kernel_matches_plain_on_card(case, k, cuda_device):
+    query, ref, self_mode, nr, nq = K5_CASES[case]
+    q = torch.from_numpy(query).to(cuda_device)
+    r = q if ref is query else torch.from_numpy(ref).to(cuda_device)
+    want = [t.cpu() for t in kh.knn_select_torch_batched(
+        q, r, k, self_mode=self_mode, nr=nr, nq=nq)]
+    kh.reset_launch_counts()
+    got = [t.cpu() for t in kh.knn_select_batched(
+        q, r, k, self_mode=self_mode, nr=nr, nq=nq)]
+    torch.cuda.synchronize()
+    assert kh.knn_select_batched.launches == 1
+    for b, (n_q, n_r) in enumerate(zip(nq, nr)):
+        assert (got[1][b, n_q:] == -1).all()
+        assert int(got[1][b].max()) < n_r
+        assert_same_selection(query[b, :n_q], ref[b],
+                              want[0][b, :n_q], want[1][b, :n_q],
+                              got[0][b, :n_q], got[1][b, :n_q],
+                              self_mode=self_mode)
