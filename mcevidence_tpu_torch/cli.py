@@ -6,8 +6,8 @@ Mirrors the reference CLI flag set (reference MCEvidence.py:1342-1474):
 -pv/--pvolume, --allparams, --cross, --version — with the JAX
 package's additions (--seed, --engine, --precision, --unit-volume-fallback,
 --error, --bootstrap, --parse-cache) and --device, which says where the kNN
-selection runs.  ``--precision fast`` and ``--json`` are not ported yet and
-exit 2 with the ROADMAP item they wait for.
+selection runs.  ``--json`` is not ported yet and exits 2 with the ROADMAP
+item it waits for.
 
 Run as ``python -m mcevidence_tpu_torch <root> [...]``.
 """
@@ -89,10 +89,13 @@ def build_parser() -> ArgumentParser:
                    help="RNG seed for split/thinning (default: "
                         "nondeterministic, like the reference)")
     p.add_argument("--engine", default="auto", choices=list(ENGINES),
-                   help="kNN selection engine: 'auto' and 'cuda' (alias "
-                        "'pallas') run the k-dependent CUDA kernel dispatch "
-                        "(the plain PyTorch selection on --device cpu); "
-                        "'torch' (alias 'xla') the plain PyTorch selection")
+                   help="kNN selection engine: 'auto', 'cuda' (alias "
+                        "'pallas') and 'pallas_exact' run the exact "
+                        "k-dependent CUDA kernel dispatch (the plain PyTorch "
+                        "selection on --device cpu); 'pallas_smalld' the "
+                        "small-d kernel where candidates are refined "
+                        "(d <= 16); 'torch' (alias 'xla') the plain PyTorch "
+                        "selection")
     p.add_argument("--device", default="cuda",
                    help="where the kNN selection runs: 'cuda' (default; "
                         "fails without a GPU) or 'cpu'")
@@ -101,8 +104,8 @@ def build_parser() -> ArgumentParser:
                    help="'refine': f32 select + host f64 refinement "
                         "(sklearn parity ~1e-14); 'device': f32 select + "
                         "f64 refinement and reduction on --device, "
-                        "scalars-only fetch (~1e-13 of refine); 'fast' is "
-                        "not ported yet")
+                        "scalars-only fetch (~1e-13 of refine); 'fast': the "
+                        "f32 selection distances used directly (~1e-3)")
     p.add_argument("--unit-volume-fallback", action="store_true",
                    help="proceed with prior_volume=1 when metadata files are "
                         "missing (results then include the prior ratio)")
@@ -132,7 +135,7 @@ def main(argv=None) -> int:
         check_precision(args.precision)
         resolve_engine(args.engine)
         resolve_device(args.device)
-    except (NotImplementedError, ValueError, RuntimeError) as e:
+    except (ValueError, RuntimeError) as e:
         print(f"error: {e}", file=sys.stderr)
         return 2
     configure(args.verbose)

@@ -1,73 +1,40 @@
-// Hand-written Hopper kernels for the kNN candidate selection.
+// Hand-written Hopper kernels for the kNN candidate selection, on rows
+// zero-padded from d to DP = 8, 16, 32 or 64 columns (zero columns add
+// exactly 0).  The bodies and their contract are in knn_common.cuh.
 //
-// Shared contract (the same as the TPU kernels they replace), per batch
-// member b = blockIdx.y of a batch of B members laid out back to back:
-//   q    f32 [B, q_rows, DP]  query rows, centred by the wrapper, zero-padded
-//                             from d to DP columns (zero columns add exactly 0)
-//   r    f32 [B, r_rows, DP]  reference rows, centred and padded the same way
-//   nq[b], nr[b]              the member's valid query and reference rows,
-//                             int32 arrays on the device (the counterpart of
-//                             the TPU kernels' SMEM nr_ref[b]); a null array
-//                             means every member has q_rows queries and
-//                             nr_all reference rows
-//   out  f32 d2 [B, q_rows, k] ascending, int32 idx [B, q_rows, k]
-//   reference rows at or past nr[b] are never read; query rows at or past
-//   nq[b] write +inf and -1 into every slot and do no other work
-//   absent slots (fewer than k candidates) hold +inf and -1
-//   self mode (query row i is reference row i): slot 0 holds (0, i) even when
-//   a duplicate point with a smaller index sits at distance 0
+// knn_select_small_k (the small-k body): counterpart of the TPU kernels K1,
+// mcevidence_tpu/ops/knn_pallas.py:_knn_kernel_packedn (n_tiles=2, reached
+// through knn_select_pallas_packed2), and K5, :_knn_kernel_packed2_batched
+// (the same selection with a batch grid axis), used for k_sel < 14.  It is
+// also K4's counterpart below k = 14, :_knn_kernel (exact f32 top-k through
+// knn_select_pallas), whose returned d2 the fast precision consumes.  Exact,
+// so it meets K1's and K5's <= 2^-11 quantisation bound with room to spare.
 //
-// The unbatched selections are the case B = 1 with null count arrays.
+// knn_select_large_k (the large-k body): counterpart of the TPU kernels K2,
+// :_knn_kernel_binned_packed, and K3, :_knn_kernel_binned (both reached
+// through knn_select_pallas_binned), used for k_sel >= 14: the refine
+// guard's retry and first passes at kmax >= 10.  With a batch it is also
+// K5's counterpart at k_sel >= 14 (K5 takes any k, and the grid's
+// thin-margin retries ask for kmax+24 and kmax+104), and K4's counterpart
+// from k = 14 on the fast path.  Its per-lane lists are K2's lane bins with
+// depth k: no candidate is lost, so it meets K2's <= 5e-7 loss bound and
+// K3's exact contract, with no 262,144-row cap.
 //
-// Distances are sums of squared differences in f32 FMA on the CUDA cores: no
-// matrix-product identity, so no cancellation, no TF32 and d2 >= 0 by
-// construction.  Candidates are ranked by the 64-bit key
-// (float_bits(d2) << 32) | index, which orders non-negative floats exactly
-// and breaks ties by the smaller index; the selection is exact.
-//
-// Each entry point returns cudaGetLastError() after its launch; it allocates
-// nothing and does not synchronise.
+// The small-k body reads the shared tile as float4 rows; the large-k body
+// reads float4 rows through L1 from L2.  Tensor-core distance tiles, a TMA
+// ring and a warp-shared insertion threshold are later work.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "knn_common.cuh"
+
 namespace {
 
-constexpr unsigned long long kEmpty = 0xFFFFFFFFFFFFFFFFull;
-constexpr unsigned kFullMask = 0xFFFFFFFFu;
-
-// Where batch member b lives and how many of its rows are valid.
-struct Members {
-    int q_rows;          // allocated query rows per member (output rows too)
-    int r_rows;          // allocated reference rows per member
-    const int* nq;       // valid query rows per member, or null: q_rows
-    const int* nr;       // valid reference rows per member, or null: nr_all
-    int nr_all;
-
-    __device__ __forceinline__ int queries(int b) const {
-        return nq ? nq[b] : q_rows;
-    }
-    __device__ __forceinline__ int refs(int b) const {
-        return nr ? nr[b] : nr_all;
-    }
-};
-
-__device__ __forceinline__ unsigned long long make_key(float d2, int j) {
-    return (static_cast<unsigned long long>(__float_as_uint(d2)) << 32) |
-           static_cast<unsigned>(j);
-}
-
-__device__ __forceinline__ void write_slot(float* out_d2, int* out_idx,
-                                           long long pos,
-                                           unsigned long long key) {
-    if (key == kEmpty) {
-        out_d2[pos] = __int_as_float(0x7F800000);
-        out_idx[pos] = -1;
-    } else {
-        out_d2[pos] = __uint_as_float(static_cast<unsigned>(key >> 32));
-        out_idx[pos] = static_cast<int>(key & 0xFFFFFFFFull);
-    }
-}
+using knn::Dispatch;
+using knn::dispatch_large_k;
+using knn::dispatch_small_k;
+using knn::kTile;
 
 template <int DP>
 __device__ __forceinline__ float sq_dist(const float (&qv)[DP],
@@ -88,285 +55,62 @@ __device__ __forceinline__ float sq_dist(const float (&qv)[DP],
     return acc;
 }
 
-// ---------------------------------------------------------------------------
-// knn_select_small_k: counterpart of the TPU kernels K1,
-// mcevidence_tpu/ops/knn_pallas.py:_knn_kernel_packedn (n_tiles=2, reached
-// through knn_select_pallas_packed2), and K5, :_knn_kernel_packed2_batched
-// (the same selection with a batch grid axis), used for k_sel < 14.
-//
-// One thread per query row, blockIdx.y the batch member.  The block streams
-// the member's reference rows through shared memory in tiles of kTile rows;
-// every thread reads the same row at the same time (a broadcast, no bank
-// conflict).  Each thread keeps its sorted top-KP keys in registers (KP is k
-// rounded up to a power of two, so every index into the list is static) and
-// inserts by one compare-swap pass.
-//
-// Exact, so it meets K1's and K5's <= 2^-11 quantisation bound with room to
-// spare.
-//
-// Bound on this card: FP32 CUDA-core work of about 3*d flops per pair plus
-// the key compare, with the reference set (2 MB at N=65536, d=8) held in L2.
-// Tensor-core distance tiles and a TMA ring are later work.
-// ---------------------------------------------------------------------------
+// [rows, DP] f32 rows; the small-k tile holds kTile rows as float4s.
+template <int DP>
+struct Padded {
+    static_assert(DP % 4 == 0, "DP is a multiple of 4");
+    static constexpr int kWidth = DP;
+    static constexpr int kTileFloats = kTile * DP;
 
-constexpr int kSmallThreads = 128;
-constexpr int kTile = 128;
-
-template <int DP, int KP>
-__global__ void __launch_bounds__(kSmallThreads)
-knn_small_k_kernel(const float* __restrict__ q, const float* __restrict__ r,
-                   Members m, int k, int self_mode,
-                   float* __restrict__ out_d2, int* __restrict__ out_idx) {
-    __shared__ float4 tile[kTile * DP / 4];
-    const int b = blockIdx.y;
-    const int nq = m.queries(b);
-    const int nr = m.refs(b);
-    q += (long long)b * m.q_rows * DP;
-    r += (long long)b * m.r_rows * DP;
-    out_d2 += (long long)b * m.q_rows * k;
-    out_idx += (long long)b * m.q_rows * k;
-
-    const int first = blockIdx.x * blockDim.x;
-    const int row = first + threadIdx.x;
-    if (row >= nq && row < m.q_rows) {
-        // a padded query row: absent slots, no search
-        for (int s = 0; s < k; ++s)
-            write_slot(out_d2, out_idx, (long long)row * k + s, kEmpty);
-    }
-    if (first >= nq) return;  // the whole block is padding
-    const bool active = row < nq;
-    const int self_row = (self_mode && active) ? row : -1;
-
-    float qv[DP];
-    const float4* q4 = reinterpret_cast<const float4*>(q);
+    static __device__ __forceinline__ void load_query(float (&qv)[DP],
+                                                      const float* q,
+                                                      long long row) {
+        const float4* q4 = reinterpret_cast<const float4*>(q) + row * (DP / 4);
 #pragma unroll
-    for (int c4 = 0; c4 < DP / 4; ++c4) {
-        const float4 v = active ? q4[(long long)row * (DP / 4) + c4]
-                                : make_float4(0.f, 0.f, 0.f, 0.f);
-        qv[4 * c4 + 0] = v.x;
-        qv[4 * c4 + 1] = v.y;
-        qv[4 * c4 + 2] = v.z;
-        qv[4 * c4 + 3] = v.w;
+        for (int c4 = 0; c4 < DP / 4; ++c4) {
+            const float4 v = __ldg(q4 + c4);
+            qv[4 * c4 + 0] = v.x;
+            qv[4 * c4 + 1] = v.y;
+            qv[4 * c4 + 2] = v.z;
+            qv[4 * c4 + 3] = v.w;
+        }
     }
-    unsigned long long best[KP];
-#pragma unroll
-    for (int s = 0; s < KP; ++s) best[s] = kEmpty;
 
-    const float4* r4 = reinterpret_cast<const float4*>(r);
-    for (int base = 0; base < nr; base += kTile) {
-        const int rows = min(kTile, nr - base);
-        __syncthreads();
+    static __device__ __forceinline__ void stage(float* tile, const float* r,
+                                                 int base, int rows) {
+        float4* t4 = reinterpret_cast<float4*>(tile);
+        const float4* r4 =
+            reinterpret_cast<const float4*>(r) + (long long)base * (DP / 4);
         for (int t = threadIdx.x; t < rows * (DP / 4); t += blockDim.x)
-            tile[t] = r4[(long long)base * (DP / 4) + t];
-        __syncthreads();
-        if (!active) continue;
-        for (int jj = 0; jj < rows; ++jj) {
-            const int j = base + jj;
-            const unsigned long long key =
-                make_key(sq_dist<DP>(qv, &tile[jj * (DP / 4)]), j);
-            if (key < best[KP - 1] && j != self_row) {
-                best[KP - 1] = key;
+            t4[t] = r4[t];
+    }
+
+    static __device__ __forceinline__ float tile_dist(const float (&qv)[DP],
+                                                      const float* tile,
+                                                      int jj) {
+        return sq_dist<DP>(
+            qv, reinterpret_cast<const float4*>(tile) + jj * (DP / 4));
+    }
+
+    static __device__ __forceinline__ float row_dist(const float (&qv)[DP],
+                                                     const float* r,
+                                                     long long j) {
+        const float4* r4 = reinterpret_cast<const float4*>(r) + j * (DP / 4);
+        float4 rowv[DP / 4];
 #pragma unroll
-                for (int s = KP - 1; s > 0; --s) {
-                    const unsigned long long a = best[s - 1], c = best[s];
-                    best[s - 1] = a < c ? a : c;
-                    best[s] = a < c ? c : a;
-                }
-            }
-        }
+        for (int c4 = 0; c4 < DP / 4; ++c4) rowv[c4] = __ldg(r4 + c4);
+        return sq_dist<DP>(qv, rowv);
     }
-    if (!active) return;
-    const long long o = (long long)row * k;
-    int slot = 0;
-    if (self_mode) {
-        out_d2[o] = 0.0f;
-        out_idx[o] = row;
-        slot = 1;
+};
+
+Dispatch padded_body(int dp, bool large) {
+    switch (dp) {
+        case 8: return large ? dispatch_large_k<Padded<8>> : dispatch_small_k<Padded<8>>;
+        case 16: return large ? dispatch_large_k<Padded<16>> : dispatch_small_k<Padded<16>>;
+        case 32: return large ? dispatch_large_k<Padded<32>> : dispatch_small_k<Padded<32>>;
+        case 64: return large ? dispatch_large_k<Padded<64>> : dispatch_small_k<Padded<64>>;
+        default: return nullptr;
     }
-#pragma unroll
-    for (int s = 0; s < KP; ++s)
-        if (slot + s < k) write_slot(out_d2, out_idx, o + slot + s, best[s]);
-}
-
-template <int DP, int KP>
-cudaError_t launch_small(const float* q, const float* r, int batch,
-                         const Members& m, int k, int self_mode,
-                         float* out_d2, int* out_idx, cudaStream_t stream) {
-    const dim3 grid((m.q_rows + kSmallThreads - 1) / kSmallThreads, batch);
-    knn_small_k_kernel<DP, KP><<<grid, kSmallThreads, 0, stream>>>(
-        q, r, m, k, self_mode, out_d2, out_idx);
-    return cudaGetLastError();
-}
-
-template <int DP>
-cudaError_t dispatch_small_k(const float* q, const float* r, int batch,
-                             const Members& m, int k, int self_mode,
-                             float* out_d2, int* out_idx,
-                             cudaStream_t stream) {
-    // keys kept per thread: k, less the self slot, rounded up to 2^m
-    const int keep = self_mode ? k - 1 : k;
-    if (keep <= 1)
-        return launch_small<DP, 1>(q, r, batch, m, k, self_mode, out_d2, out_idx, stream);
-    if (keep <= 2)
-        return launch_small<DP, 2>(q, r, batch, m, k, self_mode, out_d2, out_idx, stream);
-    if (keep <= 4)
-        return launch_small<DP, 4>(q, r, batch, m, k, self_mode, out_d2, out_idx, stream);
-    if (keep <= 8)
-        return launch_small<DP, 8>(q, r, batch, m, k, self_mode, out_d2, out_idx, stream);
-    if (keep <= 16)
-        return launch_small<DP, 16>(q, r, batch, m, k, self_mode, out_d2, out_idx, stream);
-    return cudaErrorInvalidValue;
-}
-
-// ---------------------------------------------------------------------------
-// knn_select_large_k: counterpart of the TPU kernels K2,
-// mcevidence_tpu/ops/knn_pallas.py:_knn_kernel_binned_packed, and K3,
-// :_knn_kernel_binned (both reached through knn_select_pallas_binned), used
-// for k_sel >= 14: the refine guard's retry and first passes at kmax >= 10.
-// With a batch it is also K5's counterpart at k_sel >= 14 (K5 takes any k,
-// and the grid's thin-margin retries ask for kmax+24 and kmax+104).
-//
-// One warp per query row, blockIdx.y the batch member.  Lane l scans
-// reference rows l, l+32, ... and keeps a private sorted list of up to k keys
-// in dynamic shared memory, laid out [slot][lane] so a warp's accesses fall
-// in distinct banks.  This is K2's lane-bin store with depth k: no candidate
-// is ever lost, so it meets K2's <= 5e-7 loss bound and K3's exact contract,
-// with no 262,144-row cap.  A final merge pops the warp-wide minimum of the
-// list heads k times with __shfl_xor_sync.
-//
-// Bound on this card: the same FP32 CUDA-core distance work as the small-k
-// kernel (3*d flops per pair, reference rows read through L1 from L2), plus
-// the per-lane insertions, which grow with k.  A warp-shared insertion
-// threshold, tensor-core distance tiles and a TMA ring are later work.
-// ---------------------------------------------------------------------------
-
-template <int DP>
-__global__ void knn_large_k_kernel(const float* __restrict__ q,
-                                   const float* __restrict__ r, Members m,
-                                   int k, int self_mode,
-                                   float* __restrict__ out_d2,
-                                   int* __restrict__ out_idx) {
-    extern __shared__ unsigned long long lists[];
-    const int lane = threadIdx.x & 31;
-    const int warp = threadIdx.x >> 5;
-    const int b = blockIdx.y;
-    const int row = blockIdx.x * (blockDim.x >> 5) + warp;
-    if (row >= m.q_rows) return;  // the whole warp leaves together
-    const int nq = m.queries(b);
-    const int nr = m.refs(b);
-    q += (long long)b * m.q_rows * DP;
-    r += (long long)b * m.r_rows * DP;
-    const long long o = ((long long)b * m.q_rows + row) * k;
-    if (row >= nq) {
-        // a padded query row: absent slots, no search
-        for (int s = lane; s < k; s += 32)
-            write_slot(out_d2, out_idx, o + s, kEmpty);
-        return;
-    }
-    const int keep = self_mode ? k - 1 : k;
-    const int self_row = self_mode ? row : -1;
-    unsigned long long* list = lists + (long long)warp * keep * 32;
-
-    float qv[DP];
-    const float4* q4 = reinterpret_cast<const float4*>(q) + (long long)row * (DP / 4);
-#pragma unroll
-    for (int c4 = 0; c4 < DP / 4; ++c4) {
-        const float4 v = __ldg(q4 + c4);
-        qv[4 * c4 + 0] = v.x;
-        qv[4 * c4 + 1] = v.y;
-        qv[4 * c4 + 2] = v.z;
-        qv[4 * c4 + 3] = v.w;
-    }
-    for (int s = 0; s < keep; ++s) list[s * 32 + lane] = kEmpty;
-
-    if (keep > 0) {
-        unsigned long long worst = kEmpty;
-        const float4* r4 = reinterpret_cast<const float4*>(r);
-        for (int j = lane; j < nr; j += 32) {
-            float4 rowv[DP / 4];
-#pragma unroll
-            for (int c4 = 0; c4 < DP / 4; ++c4)
-                rowv[c4] = __ldg(r4 + (long long)j * (DP / 4) + c4);
-            const unsigned long long key = make_key(sq_dist<DP>(qv, rowv), j);
-            if (key < worst && j != self_row) {
-                int s = keep - 1;
-                while (s > 0 && list[(s - 1) * 32 + lane] > key) {
-                    list[s * 32 + lane] = list[(s - 1) * 32 + lane];
-                    --s;
-                }
-                list[s * 32 + lane] = key;
-                worst = list[(keep - 1) * 32 + lane];
-            }
-        }
-    }
-    __syncwarp();
-
-    int slot = 0;
-    if (self_mode) {
-        if (lane == 0) {
-            out_d2[o] = 0.0f;
-            out_idx[o] = row;
-        }
-        slot = 1;
-    }
-    int h = 0;
-    unsigned long long head = keep > 0 ? list[lane] : kEmpty;
-    for (int s = 0; s < keep; ++s) {
-        unsigned long long mn = head;
-#pragma unroll
-        for (int off = 16; off > 0; off >>= 1) {
-            const unsigned long long other = __shfl_xor_sync(kFullMask, mn, off);
-            mn = other < mn ? other : mn;
-        }
-        // keys are unique (distinct indices), so exactly one lane advances
-        if (mn != kEmpty && head == mn) {
-            ++h;
-            head = h < keep ? list[h * 32 + lane] : kEmpty;
-        }
-        if (lane == 0) write_slot(out_d2, out_idx, o + slot + s, mn);
-    }
-}
-
-constexpr int kLargeMaxWarps = 8;
-constexpr int kLargeSmemTarget = 64 * 1024;
-
-template <int DP>
-cudaError_t dispatch_large_k(const float* q, const float* r, int batch,
-                             const Members& m, int k, int self_mode,
-                             float* out_d2, int* out_idx,
-                             cudaStream_t stream) {
-    const int keep = self_mode ? k - 1 : k;
-    const int per_warp = (keep > 0 ? keep : 1) * 32 * (int)sizeof(unsigned long long);
-    int warps = kLargeSmemTarget / per_warp;
-    warps = warps < 1 ? 1 : (warps > kLargeMaxWarps ? kLargeMaxWarps : warps);
-    const int smem = warps * per_warp;
-    cudaError_t err = cudaFuncSetAttribute(
-        knn_large_k_kernel<DP>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-    if (err != cudaSuccess) return err;
-    const dim3 grid((m.q_rows + warps - 1) / warps, batch);
-    knn_large_k_kernel<DP><<<grid, warps * 32, smem, stream>>>(
-        q, r, m, k, self_mode, out_d2, out_idx);
-    return cudaGetLastError();
-}
-
-using Dispatch = cudaError_t (*)(const float*, const float*, int,
-                                 const Members&, int, int, float*, int*,
-                                 cudaStream_t);
-
-cudaError_t run(Dispatch d8, Dispatch d16, Dispatch d32, Dispatch d64,
-                const float* q, const float* r, int batch, int q_rows,
-                int r_rows, const int* nq, const int* nr, int nr_all, int dp,
-                int k, int self_mode, float* out_d2, int* out_idx,
-                void* stream, int device) {
-    cudaError_t err = cudaSetDevice(device);
-    if (err != cudaSuccess) return err;
-    if (batch <= 0 || q_rows <= 0 || k <= 0) return cudaSuccess;
-    if (batch > 65535) return cudaErrorInvalidValue;
-    Dispatch d = dp == 8 ? d8 : dp == 16 ? d16 : dp == 32 ? d32 : dp == 64 ? d64 : nullptr;
-    if (d == nullptr) return cudaErrorInvalidValue;
-    const Members m{q_rows, r_rows, nq, nr, nr_all};
-    return d(q, r, batch, m, k, self_mode, out_d2, out_idx,
-             static_cast<cudaStream_t>(stream));
 }
 
 }  // namespace
@@ -383,10 +127,10 @@ int knn_select_small_k(const float* q, const float* r, int batch, int q_rows,
                        int r_rows, const int* nq, const int* nr, int nr_all,
                        int dp, int k, int self_mode, float* out_d2,
                        int* out_idx, void* stream, int device) {
-    return static_cast<int>(run(dispatch_small_k<8>, dispatch_small_k<16>,
-                                dispatch_small_k<32>, dispatch_small_k<64>, q,
-                                r, batch, q_rows, r_rows, nq, nr, nr_all, dp,
-                                k, self_mode, out_d2, out_idx, stream, device));
+    return static_cast<int>(knn::run(padded_body(dp, false), q, r, batch,
+                                     q_rows, r_rows, nq, nr, nr_all, k,
+                                     self_mode, out_d2, out_idx, stream,
+                                     device));
 }
 
 // knn_select_large_k takes 1 <= k <= 256.
@@ -394,10 +138,10 @@ int knn_select_large_k(const float* q, const float* r, int batch, int q_rows,
                        int r_rows, const int* nq, const int* nr, int nr_all,
                        int dp, int k, int self_mode, float* out_d2,
                        int* out_idx, void* stream, int device) {
-    return static_cast<int>(run(dispatch_large_k<8>, dispatch_large_k<16>,
-                                dispatch_large_k<32>, dispatch_large_k<64>, q,
-                                r, batch, q_rows, r_rows, nq, nr, nr_all, dp,
-                                k, self_mode, out_d2, out_idx, stream, device));
+    return static_cast<int>(knn::run(padded_body(dp, true), q, r, batch,
+                                     q_rows, r_rows, nq, nr, nr_all, k,
+                                     self_mode, out_d2, out_idx, stream,
+                                     device));
 }
 
 const char* knn_error_string(int code) {

@@ -8,10 +8,13 @@ is the functional core for users who already hold arrays.  Both mirror
   host ingest (burn/thin/split) -> host f64 whitening -> f32 kNN candidate
   selection on ``device`` -> host f64 refinement -> host f64 estimator
 
-which matches a float64 sklearn/numpy oracle to ~1e-9 in ln Z, and on
+which matches a float64 sklearn/numpy oracle to ~1e-9 in ln Z; on
 ``precision="device"`` (``ops/pipeline.py``), which selects, refines in f64
 and reduces on ``device`` and fetches only kmax+1 scalars (~1e-13 of
-refine).  The ``"fast"`` precision is not ported yet and raises.
+refine); and on ``precision="fast"``, which uses the exact selection's f32
+distances directly (~1e-3 of refine): host f64 whitening and estimator in
+``evidence_fn``, and for one auto-mode batch in ``MCEvidence`` the fused
+f32 pipeline with whitening and estimator on ``device`` too.
 """
 
 from __future__ import annotations
@@ -37,11 +40,6 @@ logger = logging.getLogger(__name__)
 
 PRECISIONS = ("refine", "fast", "device")
 COVTYPES = ("all", "single")
-# precisions of the JAX package that wait for a later slice of the port
-_PENDING_PRECISIONS = {
-    "fast": "ROADMAP.md Queue 1, item 6 (ops/pipeline.py in 'fast' "
-            "precision)",
-}
 
 
 def _check_mode(value, allowed, name):
@@ -53,14 +51,8 @@ def _check_mode(value, allowed, name):
 
 
 def check_precision(precision: str) -> None:
-    """Raise ``ValueError`` for an unknown precision and
-    ``NotImplementedError`` for one the port does not run yet."""
+    """Raise ``ValueError`` for an unknown precision."""
     _check_mode(precision, PRECISIONS, "precision")
-    if precision in _PENDING_PRECISIONS:
-        raise NotImplementedError(
-            f"precision={precision!r} is not ported yet; it waits for "
-            f"{_PENDING_PRECISIONS[precision]}. Use precision='device' or "
-            "'refine'.")
 
 
 def evidence_fn(samples: np.ndarray,
@@ -135,8 +127,8 @@ def evidence_fn(samples: np.ndarray,
     else:
         s1w, s2w, log_j = samples, samples2, 0.0
 
-    dknn = exact_knn(s1w, s2w if cross else None, kmax, engine=engine,
-                     device=device)
+    dknn = exact_knn(s1w, s2w if cross else None, kmax,
+                     refine=precision != "fast", engine=engine, device=device)
     k_start = 0 if cross else 1
     mle = log_evidence_from_knn_np(
         dknn, lnlike, w, sumw, ndim,
@@ -166,11 +158,13 @@ class MCEvidence:
         reference MCEvidence.py:694).
     :param seed: RNG seed for split / Poisson thinning / random subsampling
         (the reference uses the unseeded global RNG — quirk Q8).
-    :param precision: 'refine' (float64-parity, default) or 'device' (the
-        refinement and reduction on the card too, scalars-only fetch).
-    :param engine: kNN selection engine: 'auto', 'cuda' (alias 'pallas':
-        the k-dependent kernel dispatch) or 'torch' (alias 'xla': the plain
-        PyTorch selection).
+    :param precision: 'refine' (float64-parity, default), 'device' (the
+        refinement and reduction on the card too, scalars-only fetch) or
+        'fast' (the selection's f32 distances used directly).
+    :param engine: kNN selection engine: 'auto', 'cuda' (alias 'pallas')
+        and 'pallas_exact' (the exact k-dependent kernel dispatch),
+        'pallas_smalld' (the small-d kernel for refine consumers at
+        d <= 16) or 'torch' (alias 'xla': the plain PyTorch selection).
     :param device: where the kNN selection runs, 'cuda' (default) or 'cpu'.
     """
 
@@ -357,6 +351,29 @@ class MCEvidence:
                 "brange, prewhiten=False, or cross + covtype='single'); "
                 "falling back to precision='refine'")
 
+        # the fused f32 pipeline for the common fast-mode case: one batch
+        # covering the whole chain, auto mode (covtype 'all' and 'single'
+        # coincide)
+        if (self.precision == "fast" and not self.split
+                and self.brange is None and prewhiten):
+            from .ops.pipeline import fast_auto_evidence
+            s, lnl, w = self._get_batch("s1", 0, False)
+            if pos_lnp:
+                lnl = -lnl
+            t0 = time.perf_counter()
+            out = fast_auto_evidence(
+                s, lnl, w, kmax=kmax, prior_volume=math.exp(log_pv),
+                sum_adjusted_weights=float(
+                    np.sum(self.pair.s1.adjusted_weights)),
+                engine=self.engine, device=self.device)
+            self.timings["fused_s"] = time.perf_counter() - t0
+            if verbose > 0:
+                for k in range(1, kmax):
+                    logger.info("   ln(B)[k=%d] = %s", k, out[k - 1])
+            if info:
+                return out, self.info
+            return out
+
         mle = np.zeros((self.batch_plan.nbatch, kmax))
         t_whiten = t_knn = t_est = 0.0
 
@@ -406,8 +423,9 @@ class MCEvidence:
             log_j = stats.log_jacobian if prewhiten else 0.0
 
             t0 = time.perf_counter()
-            dknn = exact_knn(s1w, ref, kmax, engine=self.engine,
-                             device=self.device)
+            dknn = exact_knn(s1w, ref, kmax,
+                             refine=self.precision != "fast",
+                             engine=self.engine, device=self.device)
             t_knn += time.perf_counter() - t0
 
             t0 = time.perf_counter()
@@ -512,7 +530,10 @@ def evidence_bootstrap(source, *, kmax: int = 2, n_boot: int = 100,
         s2w = None
         stats = whiten_stats(s)
     s1w = apply_whiten(s, stats)
-    dknn = exact_knn(s1w, s2w, kmax, engine=engine, device=mc.device)
+    # the shared kNN pass honours the requested precision (fast: the
+    # selection's f32 distances); all replicates reuse it either way
+    dknn = exact_knn(s1w, s2w, kmax, refine=precision != "fast",
+                     engine=engine, device=mc.device)
     # exact_knn clips k to the reference-partition size; keep the replicate
     # matrix consistent with the columns actually computed so short chains
     # (or small split halves) return fewer k values instead of raising.

@@ -15,8 +15,12 @@ is one log-space reduction:
                 + lnL_max - ln V_prior
 
 which is algebraically identical, numerically stabler (D^d never leaves log
-space), and vectorizes over (j, k).  This is the float64 numpy twin the
-refine path runs on the host (``mcevidence_tpu/ops/estimator.py:112``).
+space), and vectorizes over (j, k).  ``log_evidence_from_knn_np`` is the
+float64 numpy twin the refine path runs on the host
+(``mcevidence_tpu/ops/estimator.py:112``); ``log_evidence_from_knn`` is the
+torch reduction the ``fast`` precision runs on the card in f32
+(``mcevidence_tpu/ops/estimator.py:50``, batched like
+``mcevidence_tpu/parallel/ring.py:_reduce_mle``).
 
 Conventions preserved from the reference:
 * auto mode:  distance columns include the self match at k=0; columns
@@ -33,8 +37,10 @@ Conventions preserved from the reference:
 from __future__ import annotations
 
 import math
+from typing import Optional
 
 import numpy as np
+import torch
 
 
 def log_ball_volume_const(ndim) -> float:
@@ -73,3 +79,54 @@ def log_evidence_from_knn_np(dknn, lnlike, weights, sum_adjusted_weights,
            + lnl_max - log_prior_volume)
     mle[k_idx < k_start] = 0.0
     return mle
+
+
+def _as_batch(value, like: torch.Tensor) -> torch.Tensor:
+    """A scalar or per-member value as a tensor on ``like``'s device and
+    dtype, with a trailing axis to broadcast against the k columns."""
+    return torch.as_tensor(value, dtype=like.dtype,
+                           device=like.device)[..., None]
+
+
+def log_evidence_from_knn(dknn: torch.Tensor, lnlike: torch.Tensor,
+                          weights: torch.Tensor, sum_adjusted_weights,
+                          ndim: int, log_jacobian, log_prior_volume,
+                          k_start: int, nsamples=None,
+                          valid: Optional[torch.Tensor] = None,
+                          squared: bool = False) -> torch.Tensor:
+    """The fused estimator on the tensors' device and dtype.
+
+    ``dknn`` (..., S, K) sorted kNN distances (squared when ``squared``),
+    ``lnlike``/``weights``/``valid`` (..., S) over the same leading batch
+    axes; ``sum_adjusted_weights``, ``log_jacobian``, ``log_prior_volume``
+    and ``nsamples`` (S of the amax denominator, default the rows of
+    ``dknn``) are scalars or (...,) per member.  Rows with ``valid == 0``
+    contribute nothing.  Zero distances give -inf terms (volume 0, as in
+    the reference).  Returns (..., K) MLE_k with the columns below
+    ``k_start`` set to 0."""
+    k = dknn.shape[-1]
+    if nsamples is None:
+        nsamples = dknn.shape[-2]
+    if valid is None:
+        lnl_max = lnlike.amax(dim=-1)
+    else:
+        lnl_max = torch.where(valid > 0, lnlike, -math.inf).amax(dim=-1)
+    fs = lnlike - lnl_max[..., None]
+    pos = dknn > 0
+    log_d = torch.where(pos, torch.log(torch.where(pos, dknn, 1.0)),
+                        -math.inf)
+    d_pow = 0.5 * ndim if squared else ndim
+    log_terms = (log_ball_volume_const(ndim) + d_pow * log_d
+                 + (fs - torch.log(weights))[..., None])
+    if valid is not None:
+        log_terms = torch.where(valid[..., None] > 0, log_terms, -math.inf)
+    log_dotp = torch.logsumexp(log_terms, dim=-2)             # (..., K)
+    k_idx = torch.arange(k, device=dknn.device)
+    k_nn = (k_idx if k_start == 1 else k_idx + 1).to(log_dotp.dtype)
+    # S*k+1 in floating point, as ring.py:_reduce_mle takes it
+    log_amax = log_dotp - torch.log(_as_batch(nsamples, log_dotp) * k_nn
+                                    + 1.0)
+    mle = (torch.log(_as_batch(sum_adjusted_weights, log_dotp)) + log_amax
+           + _as_batch(log_jacobian, log_dotp) + lnl_max[..., None]
+           - _as_batch(log_prior_volume, log_dotp))
+    return torch.where(k_idx < k_start, torch.zeros_like(mle), mle)

@@ -1,21 +1,27 @@
 """Exact k-nearest-neighbour distances: f32 selection on the card, f64 refine.
 
-The counterpart of ``mcevidence_tpu/ops/knn.py`` on the refine path:
+The counterpart of ``mcevidence_tpu/ops/knn.py``:
 
 * selection: the reference-set-centred f64 coordinates are cast to f32 and
-  k_sel = k + pad candidates per row are selected on ``device``; only their
-  indices come back to the host.
-* refinement: the candidates' distances are recomputed in f64 with the
+  k_sel = k + pad candidates per row are selected on ``device``.
+* refinement (``refine=True``, the default): only the candidates' indices
+  come back to the host; their distances are recomputed in f64 with the
   cancellation-free difference form and re-sorted, and a sufficiency guard
   re-selects once with 4*k_sel+8 candidates when the k-th refined distance
   sits within 2^-10 of the candidate boundary.
+* ``refine=False`` (the ``fast`` precision): k candidates are selected by
+  the exact dispatch and the square roots of their f32 d2 come back as f64.
 
 Engines (``engine=``):
 
-* ``"auto"``: the k-dependent kernel dispatch; on a CPU device the kernel
-  wrappers run their plain version.
-* ``"cuda"`` (alias ``"pallas"``): the k-dependent kernel dispatch, small-k
-  kernel below 14 candidates and large-k kernel from there.
+* ``"auto"``, ``"cuda"`` (alias ``"pallas"``) and ``"pallas_exact"``: the
+  exact k-dependent kernel dispatch, small-k kernel below 14 candidates and
+  large-k kernel from there (``pallas_exact`` is K4's forced engine in the
+  JAX package; every kernel here is exact, so it takes the same dispatch).
+  On a CPU device the kernel wrappers run their plain version.
+* ``"pallas_smalld"``: the small-d kernel (K8/K9's counterpart) where the
+  JAX package runs it, refine consumers with d <= 16; wider inputs take the
+  exact dispatch, and so does ``refine=False``.
 * ``"torch"`` (alias ``"xla"``): the plain PyTorch selection.
 
 Auto-evidence ("self mode", ``ref=None``) keeps the reference's semantics:
@@ -33,8 +39,9 @@ import numpy as np
 import torch
 
 from ..utils.device import resolve_device
-from .knn_hopper import (knn_select_batched, knn_select_cuda,
-                         knn_select_torch, knn_select_torch_batched)
+from .knn_hopper import (SMALLD_MAX, knn_select_batched, knn_select_cuda,
+                         knn_select_smalld, knn_select_torch,
+                         knn_select_torch_batched)
 
 logger = logging.getLogger(__name__)
 
@@ -68,39 +75,47 @@ def bucket_size_pow2(n: int, quantum: int = BUCKET_QUANTUM) -> int:
 # forced single-kernel engines of the JAX package and the ROADMAP kernel
 # each one waits for
 _PENDING_ENGINES = {
-    "pallas_exact": "K4 (_knn_kernel, exact f32 top-k)",
     "pallas_packed": "K6 (_knn_kernel_packed)",
-    "pallas_smalld": "K8 (_knn_kernel_packed_smalld)",
     "pallas_packed2": "K1 as a forced engine (K1 runs only behind the "
                       "k-dependent 'cuda' dispatch)",
     "pallas_binned": "K2/K3 as a forced engine (they run only behind the "
                      "k-dependent 'cuda' dispatch)",
 }
-ENGINES = ("auto", "cuda", "pallas", "torch", "xla") + tuple(_PENDING_ENGINES)
+ENGINES = (("auto", "cuda", "pallas", "pallas_exact", "pallas_smalld",
+            "torch", "xla") + tuple(_PENDING_ENGINES))
 
 
 def resolve_engine(engine: str) -> str:
-    """Map an engine name onto ``"cuda"`` or ``"torch"``; raises for names
-    whose kernel is not ported yet and for unknown names."""
-    if engine in ("auto", "cuda", "pallas"):
+    """Map an engine name onto ``"cuda"`` (the exact dispatch),
+    ``"smalld"`` or ``"torch"``; raises for names whose kernel is not
+    ported yet and for unknown names."""
+    if engine in ("auto", "cuda", "pallas", "pallas_exact"):
         return "cuda"
+    if engine == "pallas_smalld":
+        return "smalld"
     if engine in ("torch", "xla"):
         return "torch"
     if engine in _PENDING_ENGINES:
         raise ValueError(
             f"engine {engine!r} is not ported yet: it waits for the TPU "
             f"kernel {_PENDING_ENGINES[engine]} (ROADMAP.md, Queue 2); use "
-            "'auto', 'cuda' or 'torch'")
+            "'auto', 'cuda', 'pallas_exact', 'pallas_smalld' or 'torch'")
     raise ValueError(f"unknown engine {engine!r}; expected one of {ENGINES}")
 
 
-def selector(engine: str, batched: bool = False):
-    """The selection an engine runs: the kernel dispatch for ``"cuda"``,
-    the plain version for ``"torch"``; ``batched`` picks the (B, N, d)
-    forms."""
-    if resolve_engine(engine) == "cuda":
-        return knn_select_batched if batched else knn_select_cuda
-    return knn_select_torch_batched if batched else knn_select_torch
+def selector(engine: str, batched: bool = False, *, width: int,
+             refine: bool = True):
+    """The selection an engine runs on rows ``width`` coordinates wide: the
+    plain version for ``"torch"``; the small-d kernel for ``"smalld"`` when
+    a refine stage consumes the candidates (``refine``) and ``width`` <=
+    ``SMALLD_MAX``, as the JAX package dispatches it; the exact kernel
+    dispatch otherwise.  ``batched`` picks the (B, N, d) forms."""
+    kind = resolve_engine(engine)
+    if kind == "torch":
+        return knn_select_torch_batched if batched else knn_select_torch
+    if kind == "smalld" and refine and width <= SMALLD_MAX:
+        return knn_select_smalld
+    return knn_select_batched if batched else knn_select_cuda
 
 
 def center_f64(query64: np.ndarray,
@@ -202,36 +217,42 @@ def _refine_knn_f64_all(query64, ref64, idx, self_mode) -> np.ndarray:
 
 
 def exact_knn(query: np.ndarray, ref: Optional[np.ndarray], k: int,
-              *, pad_candidates: int = 4, engine: str = "auto",
-              device="cuda") -> np.ndarray:
-    """Sorted kNN distances — the refine-path parity pipeline.
+              *, refine: bool = True, pad_candidates: int = 4,
+              engine: str = "auto", device="cuda") -> np.ndarray:
+    """Sorted kNN distances.
 
     Args:
       query: (Nq, d) float64 whitened samples.
       ref:   (Nr, d) float64 whitened reference set, or None for self mode
              (auto-evidence: ref = query, self match included as column 0).
       k:     number of distance columns to return.
-      pad_candidates: extra f32-selected candidates per row; guards against
-        f32 rounding flipping the selection boundary before refinement.
-      engine: ``"auto"``, ``"cuda"``/``"pallas"`` or ``"torch"``/``"xla"``
-        (see the module docstring).
+      refine: recompute the candidates' distances in f64 on the host (the
+        parity pipeline); False returns the selection's f32 distances (the
+        ``fast`` precision).
+      pad_candidates: extra f32-selected candidates per row when refining;
+        guards against f32 rounding flipping the selection boundary.
+      engine: see the module docstring.
       device: where the selection runs; ``"cuda"`` raises without a card.
 
     Returns:
       (Nq, k) float64 sorted ascending distances.
     """
-    sel = selector(engine)
-    dev = resolve_device(device)
     self_mode = ref is None
     ref64 = query if self_mode else ref
+    sel = selector(engine, width=query.shape[1], refine=refine)
+    dev = resolve_device(device)
     nq, nr = query.shape[0], ref64.shape[0]
     k = min(k, nr)
-    k_sel = min(nr, k + pad_candidates)
+    k_sel = min(nr, k + (pad_candidates if refine else 0))
 
     q_np, r_np = center_f64(query, None if self_mode else ref64)
     q32 = torch.as_tensor(q_np, dtype=torch.float32).to(dev)
     r32 = q32 if self_mode else torch.as_tensor(
         r_np, dtype=torch.float32).to(dev)
+
+    if not refine:
+        d2 = sel(q32, r32, k_sel, self_mode=self_mode)[0]
+        return np.sqrt(d2.cpu().numpy().astype(np.float64))[:, :k]
 
     def select(ks):
         return sel(q32, r32, ks, self_mode=self_mode)[1].cpu().numpy()

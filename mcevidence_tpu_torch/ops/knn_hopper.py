@@ -22,9 +22,16 @@ and ``nq[b]``; query rows at or past ``nq[b]`` come back as absent slots.
 and in float64 the brute-force oracle on the card; ``knn_select_torch_batched``
 loops it over the members.  ``knn_select_small_k``, ``knn_select_large_k``
 and ``knn_select_batched`` wrap the hand-written kernels of
-``csrc/knn_select.cu``.  A wrapper given CPU tensors returns the plain
-version; given CUDA tensors it launches its kernel or raises.  Each wrapper
-counts its launches in ``<wrapper>.launches``.
+``csrc/knn_select.cu``; ``knn_select_smalld`` (the counterpart of K8 and K9,
+the ``pallas_smalld`` engine) wraps those of ``csrc/knn_smalld.cu``, which
+sweep only the d <= 16 true coordinates of an unpadded layout.  A wrapper
+given CPU tensors returns the plain version; given CUDA tensors it launches
+its kernel or raises.  Each wrapper counts its launches in
+``<wrapper>.launches``.
+
+Every kernel returns exact f32 sums of squared differences as its d2, so
+the exact dispatch (``knn_select_cuda``) is also the counterpart of K4, the
+exact kernel whose d2 the ``fast`` precision consumes directly.
 """
 
 from __future__ import annotations
@@ -33,8 +40,9 @@ from typing import Optional, Sequence, Tuple, Union
 
 import torch
 
-# limits of the hand-written kernels (csrc/knn_select.cu)
+# limits of the hand-written kernels (csrc/knn_select.cu, csrc/knn_smalld.cu)
 D_MAX = 64
+SMALLD_MAX = 16
 SMALL_K_MAX = 16
 LARGE_K_MAX = 256
 # first pass / retry switch of the k-dependent dispatch
@@ -176,8 +184,9 @@ def _padded_width(d: int) -> int:
 
 def _call(entry: str, q, r, d2, idx, *, batch, q_rows, r_rows, nq_dev,
           nr_dev, nr_all, dp, k, self_mode) -> None:
-    """Call one C entry point of ``csrc/knn_select.cu`` on the current
-    stream; raises on a non-zero cudaError_t."""
+    """Call one C entry point of ``csrc/`` on the current stream (``dp``:
+    the rows' width as laid out, padded or not); raises on a non-zero
+    cudaError_t."""
     from . import _build
     dev = q.device
     lib = _build.load()
@@ -190,11 +199,12 @@ def _call(entry: str, q, r, d2, idx, *, batch, q_rows, r_rows, nq_dev,
     _build.check(lib, code, entry)
 
 
-def _launch(entry: str, query, ref, k, self_mode, nr):
-    """Centre (masked mean, f32), pad d to the kernel width, allocate the
-    outputs and launch the kernel as a batch of one member."""
+def _launch(entry: str, query, ref, k, self_mode, nr, dp=None):
+    """Centre (masked mean, f32), pad d to the kernel width ``dp`` (default
+    the next of 8/16/32/64), allocate the outputs and launch the kernel as a
+    batch of one member."""
     nq, d = query.shape
-    dp = _padded_width(d)
+    dp = _padded_width(d) if dp is None else dp
     nr = _valid_count(ref, nr)
     k = min(k, ref.shape[0])
     if self_mode and nq > ref.shape[0]:
@@ -254,6 +264,47 @@ def knn_select_large_k(query: torch.Tensor, ref: torch.Tensor, k: int, *,
     return d2, idx
 
 
+def _launch_batched(small_entry: str, large_entry: str, query, ref, k,
+                    self_mode, nr, nq, dp):
+    """Centre each member on its masked mean (f32), pad d to ``dp``, and
+    launch the small-k body below ``LARGE_K_FROM`` candidates and the
+    large-k body from there, once over the whole batch, with the per-member
+    counts in int32 arrays on the card."""
+    bsz, nq_alloc, d = query.shape
+    nr_alloc = ref.shape[1]
+    k = min(k, nr_alloc)
+    if k > LARGE_K_MAX:
+        raise ValueError(f"the batched kernels take k <= {LARGE_K_MAX}, "
+                         f"got k={k}")
+    nr_b = _member_counts(nr, bsz, nr_alloc, "nr")
+    nq_b = _member_counts(nq, bsz, nq_alloc, "nq")
+    dev = query.device
+    d2 = torch.empty((bsz, nq_alloc, k), dtype=torch.float32, device=dev)
+    idx = torch.empty((bsz, nq_alloc, k), dtype=torch.int32, device=dev)
+    if bsz == 0 or nq_alloc == 0 or k == 0:
+        return d2, idx, False
+    nr_dev = torch.tensor(nr_b, dtype=torch.int32, device=dev)
+    nq_dev = torch.tensor(nq_b, dtype=torch.int32, device=dev)
+    # per-member masked mean (``_mu_masked``): rows at or past nr[b] may hold
+    # anything, so they are selected out, not multiplied by zero
+    ref32 = ref.to(torch.float32)
+    ok = (torch.arange(nr_alloc, device=dev)[None, :] < nr_dev[:, None])
+    mu = (torch.where(ok[..., None], ref32, 0.0).sum(dim=1)
+          / nr_dev.clamp(min=1)[:, None].to(torch.float32))[:, None, :]
+    q = torch.zeros((bsz, nq_alloc, dp), dtype=torch.float32, device=dev)
+    q[..., :d] = query.to(torch.float32) - mu
+    if self_mode and ref is query:
+        r = q
+    else:
+        r = torch.zeros((bsz, nr_alloc, dp), dtype=torch.float32, device=dev)
+        r[..., :d] = ref32 - mu
+    entry = large_entry if k >= LARGE_K_FROM else small_entry
+    _call(entry, q, r, d2, idx, batch=bsz, q_rows=nq_alloc, r_rows=nr_alloc,
+          nq_dev=nq_dev, nr_dev=nr_dev, nr_all=nr_alloc, dp=dp, k=k,
+          self_mode=self_mode)
+    return d2, idx, True
+
+
 def knn_select_batched(query: torch.Tensor, ref: torch.Tensor, k: int, *,
                        self_mode: bool = False, nr: Counts = None,
                        nq: Counts = None
@@ -270,59 +321,78 @@ def knn_select_batched(query: torch.Tensor, ref: torch.Tensor, k: int, *,
     if query.device.type == "cpu":
         return knn_select_torch_batched(query, ref, k, self_mode=self_mode,
                                         nr=nr, nq=nq)
-    bsz, nq_alloc, d = query.shape
-    nr_alloc = ref.shape[1]
-    k = min(k, nr_alloc)
-    if k > LARGE_K_MAX:
-        raise ValueError(f"knn_select_batched takes k <= {LARGE_K_MAX}, "
-                         f"got k={k}")
-    dp = _padded_width(d)
-    nr_b = _member_counts(nr, bsz, nr_alloc, "nr")
-    nq_b = _member_counts(nq, bsz, nq_alloc, "nq")
-    dev = query.device
-    d2 = torch.empty((bsz, nq_alloc, k), dtype=torch.float32, device=dev)
-    idx = torch.empty((bsz, nq_alloc, k), dtype=torch.int32, device=dev)
-    if bsz == 0 or nq_alloc == 0 or k == 0:
-        return d2, idx
-    nr_dev = torch.tensor(nr_b, dtype=torch.int32, device=dev)
-    nq_dev = torch.tensor(nq_b, dtype=torch.int32, device=dev)
-    # per-member masked mean (``_mu_masked``): rows at or past nr[b] may hold
-    # anything, so they are selected out, not multiplied by zero
-    ref32 = ref.to(torch.float32)
-    ok = (torch.arange(nr_alloc, device=dev)[None, :] < nr_dev[:, None])
-    mu = (torch.where(ok[..., None], ref32, 0.0).sum(dim=1)
-          / nr_dev.clamp(min=1)[:, None].to(torch.float32))[:, None, :]
-    q = torch.zeros((bsz, nq_alloc, dp), dtype=torch.float32, device=dev)
-    q[..., :d] = query.to(torch.float32) - mu
-    if self_mode and ref is query:
-        r = q
-    else:
-        r = torch.zeros((bsz, nr_alloc, dp), dtype=torch.float32, device=dev)
-        r[..., :d] = ref32 - mu
-    entry = ("knn_select_large_k" if k >= LARGE_K_FROM
-             else "knn_select_small_k")
-    _call(entry, q, r, d2, idx, batch=bsz, q_rows=nq_alloc, r_rows=nr_alloc,
-          nq_dev=nq_dev, nr_dev=nr_dev, nr_all=nr_alloc, dp=dp, k=k,
-          self_mode=self_mode)
-    knn_select_batched.launches += 1
+    d2, idx, launched = _launch_batched(
+        "knn_select_small_k", "knn_select_large_k", query, ref, k, self_mode,
+        nr, nq, _padded_width(query.shape[2]))
+    knn_select_batched.launches += launched
     return d2, idx
 
 
-knn_select_small_k.launches = 0
-knn_select_large_k.launches = 0
-knn_select_batched.launches = 0
+def knn_select_smalld(query: torch.Tensor, ref: torch.Tensor, k: int, *,
+                      self_mode: bool = False, nr: Counts = None,
+                      nq: Counts = None
+                      ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Small-d selection, the counterpart of the TPU kernels K8
+    (``knn_select_pallas_smalld``) and K9
+    (``knn_select_pallas_smalld_batched``): the ``pallas_smalld`` engine.
+
+    Takes query (Nq, d) and ref (Nr, d) with a host count ``nr``, or query
+    (B, Nq, d) and ref (B, Nr, d) with per-member counts ``nr`` and ``nq``,
+    for 1 <= d <= ``SMALLD_MAX``.  The rows go to the kernel unpadded, and
+    it sums exactly d squared differences per pair (every coordinate it is
+    given: a batch of mixed widths sweeps its widest).  The small-k body
+    runs below ``LARGE_K_FROM`` candidates and the large-k body from there
+    up to ``LARGE_K_MAX``.  Exact, so it meets K8's and K9's <= 2^-12
+    quantisation contract."""
+    batched = query.dim() == 3
+    if batched:
+        _check_batched(query, ref, self_mode)
+    else:
+        _check_inputs(query, ref)
+        if nq is not None:
+            raise ValueError("nq is a per-member count of the batched form")
+    if query.device.type == "cpu":
+        if batched:
+            return knn_select_torch_batched(query, ref, k,
+                                            self_mode=self_mode, nr=nr, nq=nq)
+        return knn_select_torch(query, ref, k, self_mode=self_mode, nr=nr)
+    d = query.shape[-1]
+    if not 1 <= d <= SMALLD_MAX:
+        raise ValueError(f"knn_select_smalld takes 1 <= d <= {SMALLD_MAX}, "
+                         f"got d={d}")
+    if batched:
+        d2, idx, launched = _launch_batched(
+            "knn_select_smalld_small_k", "knn_select_smalld_large_k", query,
+            ref, k, self_mode, nr, nq, d)
+    else:
+        if min(k, ref.shape[0]) > LARGE_K_MAX:
+            raise ValueError(f"knn_select_smalld takes k <= {LARGE_K_MAX}, "
+                             f"got k={k}")
+        entry = ("knn_select_smalld_large_k" if k >= LARGE_K_FROM
+                 else "knn_select_smalld_small_k")
+        d2, idx, launched = _launch(entry, query, ref, k, self_mode, nr,
+                                    dp=d)
+    knn_select_smalld.launches += launched
+    return d2, idx
+
+
+KERNEL_WRAPPERS = (knn_select_small_k, knn_select_large_k, knn_select_batched,
+                   knn_select_smalld)
+for _wrapper in KERNEL_WRAPPERS:
+    _wrapper.launches = 0
 
 
 def knn_select_cuda(query: torch.Tensor, ref: torch.Tensor, k: int, *,
                     self_mode: bool = False, nr: Optional[int] = None
                     ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """The k-dependent dispatch of the refine path: small-k kernel below
-    ``LARGE_K_FROM`` candidates, large-k kernel from there."""
+    """The exact k-dependent dispatch: small-k kernel below
+    ``LARGE_K_FROM`` candidates, large-k kernel from there.  The selection
+    of the refine and device paths, and the counterpart of K4 where the
+    ``fast`` precision uses the returned d2 directly."""
     sel = knn_select_large_k if k >= LARGE_K_FROM else knn_select_small_k
     return sel(query, ref, k, self_mode=self_mode, nr=nr)
 
 
 def reset_launch_counts() -> None:
-    knn_select_small_k.launches = 0
-    knn_select_large_k.launches = 0
-    knn_select_batched.launches = 0
+    for wrapper in KERNEL_WRAPPERS:
+        wrapper.launches = 0

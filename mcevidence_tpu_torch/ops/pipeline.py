@@ -1,7 +1,7 @@
-"""Device-resident evidence: the ``device`` precision.
+"""Device-resident evidence: the ``device`` and ``fast`` precisions.
 
-The counterpart of the "device" parts of ``mcevidence_tpu/ops/pipeline.py``.
-One estimate runs:
+The counterpart of ``mcevidence_tpu/ops/pipeline.py``.  One ``device``
+estimate runs:
 
   host f64 whitening -> upload of the f64 whitened coordinates (an f32 copy
   is cast on the card for the selection) and of scal = exp(lnL - lnL_max)/w
@@ -18,8 +18,11 @@ the card), each logged: ndim > ``DEVICE_NDIM_MAX``, a device-memory plan
 over the budget, and a non-finite sum; thin candidate margins retry once
 with ``4*pad+8`` candidates.
 
-``fused_auto_evidence`` and ``fast_auto_evidence`` (the ``fast`` precision)
-are not ported yet and raise.
+One ``fast`` estimate (``fast_auto_evidence``, ``fused_auto_evidence``)
+runs all in f32: host f64 centring -> upload -> masked-moment whitening,
+exact kNN selection at k = kmax and the log-space estimator on the card ->
+kmax scalars back (~1e-3 in ln Z of the refine path).  The kernels take
+any row count, so nothing is padded to a row bucket.
 """
 
 from __future__ import annotations
@@ -33,10 +36,11 @@ import numpy as np
 import torch
 
 from ..utils.device import resolve_device
-from .estimator import log_ball_volume_const, log_evidence_from_knn_np
+from .estimator import (log_ball_volume_const, log_evidence_from_knn,
+                        log_evidence_from_knn_np)
 from .knn import _REFINE_CHUNK_BYTES, exact_knn, selector
 from .knn_hopper import _padded_width
-from .whiten import apply_whiten, whiten_stats
+from .whiten import apply_whiten, whiten_masked, whiten_stats
 
 logger = logging.getLogger(__name__)
 
@@ -48,21 +52,68 @@ DEVICE_NDIM_MAX = 16
 _FREE_MEMORY_SHARE = 0.8
 
 
-def _fast_pending(name):
-    raise NotImplementedError(
-        f"{name} (precision='fast') is not ported yet; it waits for "
-        "ROADMAP.md Queue 1, item 6 (the exact kernel K4 and the torch "
-        "estimator). Use precision='device' or 'refine'.")
+def fused_auto_evidence(samples: torch.Tensor, lnlike: torch.Tensor,
+                        weights: torch.Tensor, log_prior_volume, *,
+                        kmax: int, engine: str = "auto") -> torch.Tensor:
+    """Auto-evidence in f32 on the tensors' device, without waiting for it.
+
+    ``samples`` (N, ndim) f32, centred; ``lnlike`` and ``weights`` (N,)
+    f32.  Whitening from the moments, the exact selection of kmax
+    neighbours (self at column 0) and the estimator on the squared
+    distances.  Returns the (kmax,) MLE row (column 0 unused, quirk Q2);
+    columns k >= N have no k-th neighbour and are NaN, as on the host
+    parity path."""
+    n, ndim = samples.shape
+    valid = torch.ones(n, dtype=samples.dtype, device=samples.device)
+    white, log_j, _ = whiten_masked(samples, valid)
+    k_sel = min(kmax, n)
+    d2, _ = selector(engine, width=ndim, refine=False)(white, white, k_sel,
+                                                       self_mode=True)
+    if k_sel < kmax:
+        d2 = torch.cat([d2, d2.new_full((n, kmax - k_sel), math.inf)], 1)
+    mle = log_evidence_from_knn(
+        d2, lnlike, weights, weights.sum(), ndim, log_jacobian=log_j,
+        log_prior_volume=log_prior_volume, k_start=1, nsamples=n,
+        squared=True)
+    k_idx = torch.arange(kmax, device=mle.device)
+    return torch.where(k_idx < n, mle, math.nan)
 
 
-def fused_auto_evidence(*args, **kwargs):
-    """Not ported yet: raises ``NotImplementedError`` (ROADMAP item 6)."""
-    _fast_pending("fused_auto_evidence")
+def fast_auto_evidence(samples: np.ndarray, lnlike: np.ndarray,
+                       weights: Optional[np.ndarray] = None, *,
+                       kmax: int = 5, prior_volume: float = 1.0,
+                       sum_adjusted_weights: Optional[float] = None,
+                       engine: str = "auto", device="cuda") -> np.ndarray:
+    """Host wrapper of ``fused_auto_evidence``: centre in f64, cast to f32,
+    run on ``device``, fetch kmax scalars, return k = 1..kmax-1.
 
+    ``sum_adjusted_weights``: importance-adjusted SumW override (quirk Q7);
+    applied as a log-shift since only SumW differs from sum(weights)."""
+    dev = resolve_device(device)
+    kmax = max(2, kmax)
+    n = samples.shape[0]
+    if weights is None:
+        weights = np.ones(n)
+    # centre in f64 BEFORE the f32 cast: an uncentred coordinate loses
+    # |mean|*2^-24 absolute per element (fatal to the selection ranking of
+    # strongly offset chains), and the uncentred-moment covariance cancels
+    # at large |mean|/std.  Distances, covariance and Jacobian are all
+    # translation-invariant.
+    s = np.asarray(samples, np.float64)
+    s = s - s.mean(axis=0)
 
-def fast_auto_evidence(*args, **kwargs):
-    """Not ported yet: raises ``NotImplementedError`` (ROADMAP item 6)."""
-    _fast_pending("fast_auto_evidence")
+    def f32(a):
+        return torch.as_tensor(np.asarray(a, np.float32), device=dev)
+    mle = fused_auto_evidence(
+        f32(s), f32(lnlike), f32(weights),
+        torch.tensor(math.log(prior_volume), dtype=torch.float32,
+                     device=dev),
+        kmax=kmax, engine=engine).cpu().numpy().astype(np.float64)
+    if sum_adjusted_weights is not None:
+        mle = mle + (np.log(sum_adjusted_weights)
+                     - np.log(float(np.sum(weights))))
+    # column 0 (the auto-mode self-match) is dropped per quirk Q2
+    return mle[1:]
 
 
 def _gather_chunk_rows(k_sel: int, d: int) -> int:
@@ -154,8 +205,9 @@ def fused_refine_dotp(q64, r64, scal, n_ref_true, ndim, inv_s2, *,
     for it."""
     q32 = q64.to(torch.float32)
     r32 = q32 if self_mode else r64.to(torch.float32)
-    _, idx = selector(engine)(q32, r32, k_sel, self_mode=self_mode,
-                              nr=n_ref_true)
+    # smalld sweeps exactly the ndim true coordinates (JAX's d_real = ndim)
+    _, idx = selector(engine, width=q32.shape[1])(
+        q32, r32, k_sel, self_mode=self_mode, nr=n_ref_true)
     return _refine_dotp_post(q64, r64, scal, idx, ndim=ndim, inv_s2=inv_s2,
                              kmax=kmax, self_mode=self_mode)
 
@@ -171,8 +223,10 @@ def fused_refine_dotp_batch(q64, r64, scal, nq, nr, ndims, inv_s2s, *,
     member on its valid rows.  Returns the (B, kmax+1) f64 device tensor."""
     q32 = q64.to(torch.float32)
     r32 = q32 if self_mode else r64.to(torch.float32)
-    _, idx = selector(engine, batched=True)(q32, r32, k_sel,
-                                            self_mode=self_mode, nr=nr, nq=nq)
+    # smalld sweeps the batch's width, as JAX's batched program sweeps its
+    # padded width class
+    _, idx = selector(engine, batched=True, width=q32.shape[2])(
+        q32, r32, k_sel, self_mode=self_mode, nr=nr, nq=nq)
     return torch.stack([
         _refine_dotp_post(q64[b, :nq[b]], r64[b], scal[b, :nq[b]],
                           idx[b, :nq[b]], ndim=ndims[b], inv_s2=inv_s2s[b],

@@ -10,9 +10,11 @@ two differ by an orthogonal map), so we use the symmetric ``eigh`` instead of
 the reference's general ``eig`` — better conditioned, never complex, same
 distances and same Jacobian (SURVEY.md §2.4).
 
-This is the numpy float64 (host) half of ``mcevidence_tpu/ops/whiten.py``:
-the refine path whitens on the host, where the O(N d^2) work is not worth a
-device round-trip on its own.
+``whiten_stats``/``apply_whiten`` are the numpy float64 (host) half of
+``mcevidence_tpu/ops/whiten.py``: the refine and device paths whiten on the
+host, where the O(N d^2) work is not worth a device round-trip on its own.
+``whiten_masked`` is the torch counterpart of ``whiten_masked_jnp``, which
+the ``fast`` precision runs on the card in f32.
 """
 
 from __future__ import annotations
@@ -22,6 +24,7 @@ import logging
 from typing import Optional
 
 import numpy as np
+import torch
 
 logger = logging.getLogger(__name__)
 
@@ -107,3 +110,48 @@ def apply_whiten(samples: np.ndarray, stats: WhitenStats) -> np.ndarray:
         return np.asarray(samples, dtype=np.float64)
     s = np.asarray(samples, dtype=np.float64)
     return (s @ stats.eigvecs) / np.sqrt(stats.eigvals)
+
+
+def _whiten_from_cov(samples: torch.Tensor, cov: torch.Tensor):
+    """eigh + posdef select + rotate/rescale (``_whiten_from_cov_jnp``):
+    a covariance that is not positive definite, or not finite, falls back to
+    the identity transform with log_jacobian = 0.  Batched over leading
+    dimensions.  The rotation runs in f64 and is cast back, so no TF32
+    switch can round it."""
+    d = cov.shape[-1]
+    finite = torch.isfinite(cov).all(dim=-1).all(dim=-1)
+    eye = torch.eye(d, dtype=cov.dtype, device=cov.device)
+    eigvals, eigvecs = torch.linalg.eigh(
+        torch.where(finite[..., None, None], cov, eye))
+    posdef = (eigvals > 0).all(dim=-1) & finite
+    safe = torch.where(eigvals > 0, eigvals, torch.ones_like(eigvals))
+    log_j = torch.where(posdef, 0.5 * torch.log(safe).sum(dim=-1),
+                        torch.zeros_like(safe[..., 0]))
+    rot = (samples.double() @ eigvecs.double()).to(samples.dtype)
+    white = torch.where(posdef[..., None, None],
+                        rot / torch.sqrt(safe)[..., None, :], samples)
+    return white, log_j, posdef
+
+
+def whiten_masked(samples: torch.Tensor, valid: torch.Tensor):
+    """Whitening from masked moments on the samples' device: rows with
+    ``valid == 0`` (padding) stay out of the covariance; the rotation is
+    applied to every row.  ``samples`` (..., N, d) f32, ``valid`` (..., N);
+    returns (whitened, log_jacobian (...,), posdef (...,)).
+
+    The uncentred-moment form ``sxx - n mu mu^T`` cancels at large
+    |mean|/std, so callers centre the true rows first (in f64 on the host).
+    The d x d moments are summed in f64 and cast to the samples' dtype: the
+    JAX package takes them at ``Precision.HIGHEST``, and a matrix product
+    in f64 is one that ``torch.backends.cuda.matmul.allow_tf32`` cannot
+    round.  ``torch.linalg.eigh`` then runs in the samples' dtype, as
+    ``jnp.linalg.eigh`` does."""
+    x = samples.double()
+    w = valid.double()[..., None]
+    n = w.sum(dim=-2)                                      # (..., 1)
+    sw = x * w
+    mean = sw.sum(dim=-2) / n                              # (..., d)
+    sxx = sw.transpose(-1, -2) @ x                         # (..., d, d)
+    cov = ((sxx - n[..., None] * mean[..., :, None] * mean[..., None, :])
+           / (n[..., None] - 1.0))
+    return _whiten_from_cov(samples, cov.to(samples.dtype))

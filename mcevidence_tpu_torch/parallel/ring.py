@@ -10,6 +10,13 @@ rows are padded to compile buckets, and self mode uses the kernel's own pin.
 The JAX names are kept so that a reader finds the counterparts; the
 multi-GPU ring is ROADMAP.md Queue 1, item 10.
 
+* ``sharded_grid_auto_evidence``: ``fast`` precision — the body of
+  ``make_sharded_grid_evidence`` at dp = ring = 1 as batched tensors:
+  masked f32 whitening per chain, one batched selection, the batched
+  log-space reduction and the per-chain SumW shift, all on the card,
+  (B, kmax) scalars back.  Unlike the JAX program, each chain is centred
+  in f64 on the host first (as ``fast_auto_evidence`` does): the same
+  function, without the cancellation of uncentred f32 moments.
 * ``sharded_grid_device_refine_evidence``: ``device`` precision — host f64
   whitening per chain, one batched selection, f64 refinement and reduction
   on the card, (B, kmax+1) scalars back.
@@ -27,11 +34,11 @@ import math
 import numpy as np
 import torch
 
-from ..ops.estimator import log_evidence_from_knn_np
+from ..ops.estimator import log_evidence_from_knn, log_evidence_from_knn_np
 from ..ops.knn import center_f64, guarded_refine_knn_f64, selector
 from ..ops.pipeline import (_device_refine_finalize, fused_refine_dotp_batch,
                             host_refine_evidence)
-from ..ops.whiten import apply_whiten, whiten_stats
+from ..ops.whiten import apply_whiten, whiten_masked, whiten_stats
 from ..utils.device import resolve_device
 
 logger = logging.getLogger(__name__)
@@ -108,6 +115,62 @@ def _stacked(arrays, rows, width, dtype):
     for b, a in enumerate(arrays):
         out[b, :a.shape[0], :a.shape[1]] = a
     return out
+
+
+def sharded_grid_auto_evidence(chains, *, kmax: int = 2,
+                               prior_volumes=None, sumw_log_shifts=None,
+                               engine: str = "auto",
+                               device="cuda") -> np.ndarray:
+    """Auto evidence for a batch of chains in ``fast`` precision (f32).
+
+    ``chains``: a sequence of (samples, lnlike[, weights]) tuples (or dicts
+    with those keys) of one dimensionality.  Each chain is centred in f64
+    on the host and cast to f32; on ``device`` the batch is whitened from
+    each member's masked moments, searched by ONE batched selection of
+    kmax neighbours with each member's row count, and reduced per member
+    (``_reduce_mle``'s semantics); ``sumw_log_shifts`` are the per-chain
+    ln(SumW_adj / SumW) of an importance reweighting (quirk Q7).  Returns
+    (len(chains), kmax-1) ln Z values."""
+    kmax = max(2, kmax)
+    dev = resolve_device(device)
+    norm = _normalize_chains(chains)
+    b_true, _, n_rows, ndim = _grid_batch_layout(norm)
+    if any(s.shape[1] != ndim for s, _, _ in norm):
+        raise ValueError("sharded_grid_auto_evidence takes chains of one "
+                         "dimensionality")
+    if prior_volumes is None:
+        prior_volumes = np.ones(b_true)
+    shifts = (np.zeros(b_true) if sumw_log_shifts is None
+              else np.asarray(sumw_log_shifts, np.float64))
+    ns = [s.shape[0] for s, _, _ in norm]
+    samples = np.zeros((b_true, n_rows, ndim))
+    lnl = np.full((b_true, n_rows), -1e30)
+    w = np.ones((b_true, n_rows))
+    valid = np.zeros((b_true, n_rows))
+    for i, (s, l, wt) in enumerate(norm):
+        samples[i, :ns[i]] = s - s.mean(axis=0)
+        lnl[i, :ns[i]] = l
+        w[i, :ns[i]] = wt
+        valid[i, :ns[i]] = 1.0
+
+    def f32(a):
+        return torch.as_tensor(np.asarray(a, np.float32), device=dev)
+    S, L, W, V = f32(samples), f32(lnl), f32(w), f32(valid)
+    white, log_j, _ = whiten_masked(S, V)
+    k_sel = min(kmax, n_rows)
+    d2, _ = selector(engine, batched=True, width=ndim, refine=False)(
+        white, white, k_sel, self_mode=True, nr=ns, nq=ns)
+    if k_sel < kmax:
+        d2 = torch.cat([d2, d2.new_full((b_true, n_rows, kmax - k_sel),
+                                        math.inf)], dim=2)
+    mle = log_evidence_from_knn(
+        d2, L, W, (W * V).sum(dim=1), ndim, log_jacobian=log_j,
+        log_prior_volume=f32(np.log(prior_volumes)), k_start=1,
+        nsamples=f32(ns), valid=V, squared=True)
+    # importance reweighting enters only through SumW (quirk Q7), as a
+    # per-chain log shift of every column past the self match
+    mle = mle.cpu().numpy().astype(np.float64)
+    return mle[:, 1:] + shifts[:, None]
 
 
 def sharded_grid_device_refine_evidence(chains, *, kmax: int = 2,
@@ -245,10 +308,12 @@ def sharded_grid_evidence_refine(chains, *, kmax: int = 2,
     """
     kmax = max(2, kmax)
     dev = resolve_device(device)
-    select_batch, select = selector(engine, batched=True), selector(engine)
     norm = _normalize_chains(chains)
     b_true = len(norm)
     ndims = [s.shape[1] for s, _, _ in norm]
+    # the stacks below are a width class wide (8 or 16 columns)
+    select_batch = selector(engine, batched=True, width=GRID_DPAD)
+    select = selector(engine, width=GRID_DPAD)
     ns = [s.shape[0] for s, _, _ in norm]
     if max(ndims) > GRID_DPAD:
         raise ValueError(f"ndim {max(ndims)} > GRID_DPAD {GRID_DPAD}")

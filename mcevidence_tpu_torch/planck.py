@@ -11,7 +11,10 @@ run (``-nc N``) sends each dataset's cells in chunks of ``MCE_GRID_QUANTUM``
 (default 4) through one batched selection launch each
 (``parallel/ring.py:sharded_grid_device_refine_evidence``, the batched
 kernel); AllChains cells go one by one through the device path, all
-launched before any is fetched.  ``--num-shards/--shard-id`` shard the
+launched before any is fetched.  ``--precision fast`` batches each
+dataset's cells of one dimensionality and row bucket into one launch of the
+f32 program (``parallel/ring.py:sharded_grid_auto_evidence``).
+``--num-shards/--shard-id`` shard the
 dataset list deterministically (the reference's MPI ranks, with its
 remainder bug Q10 fixed), ``--procs`` forks the shards, and
 ``--aggregate-only`` merges their outputs.
@@ -258,10 +261,14 @@ def _dataset_cells_batched(path_list, names, chain_exts, *, kmax,
     and the other cells one by one through the device path, every launch
     made before any result is fetched.  ``precision='refine'``: the cells of
     each row bucket go through ``sharded_grid_evidence_refine`` (batched
-    selection, host f64 refinement).  ``cross=True`` splits each chain and
-    runs cross-evidence.  Needs numpy and torch, not pandas.
+    selection, host f64 refinement).  ``precision='fast'``: the cells of
+    each (ndim, row bucket) group go through ``sharded_grid_auto_evidence``
+    (whitening, batched selection and estimator in f32 on the card);
+    cross-evidence runs on the refine path.  ``cross=True`` splits each
+    chain and runs cross-evidence.  Needs numpy and torch, not pandas.
     """
-    from .parallel.ring import sharded_grid_evidence_refine
+    from .parallel.ring import (sharded_grid_auto_evidence,
+                                sharded_grid_evidence_refine)
 
     # prefetch file parses on worker threads (the native parser releases the
     # GIL), overlapping the host-side text parsing with everything else
@@ -318,6 +325,10 @@ def _dataset_cells_batched(path_list, names, chain_exts, *, kmax,
             "dataset stages: ingest %.1fs (parse-wait %.1fs not overlapped), "
             "device+fetch %.1fs", t_ingested - t_all, t_wait[0],
             time.perf_counter() - t_ingested)
+
+    if cross and precision == "fast":
+        logger.info("batched cross-evidence runs on the refine path")
+        precision = "refine"
 
     # chains wider than the device path takes (rare: --allparams on a
     # many-nuisance model) take the host refine path per cell
@@ -420,20 +431,33 @@ def _dataset_cells_batched(path_list, names, chain_exts, *, kmax,
 
     # one batched call per row-bucket group: a batch holds chains of
     # similar length, so a chunk's short members leave little of it idle;
-    # zero-padded coordinates make mixed-ndim groups fine
+    # zero-padded coordinates make mixed-ndim groups fine in refine
+    # precision, while the fast program whitens on the card and takes one
+    # ndim per group
     from .ops.knn import bucket_size
     by_group: Dict[tuple, list] = {}
     for cell in cells:
-        by_group.setdefault((bucket_size(len(cell[4])),), []).append(cell)
+        key = ((bucket_size(len(cell[4])),) if precision == "refine"
+               else (cell[2], bucket_size(len(cell[4]))))
+        by_group.setdefault(key, []).append(cell)
     for _, group in by_group.items():
-        out = sharded_grid_evidence_refine(
-            [(c[3], c[4], c[5]) for c in group], kmax=kmax,
-            prior_volumes=[c[7] for c in group],
-            sum_adjusted_weights=[
-                c[8] if c[8] is not None else float(np.sum(c[5]))
-                for c in group],
-            chains2=[c[6] for c in group] if cross else None,
-            engine=engine, device=device)
+        chains = [(c[3], c[4], c[5]) for c in group]
+        pv = [c[7] for c in group]
+        if precision == "refine":
+            out = sharded_grid_evidence_refine(
+                chains, kmax=kmax, prior_volumes=pv,
+                sum_adjusted_weights=[
+                    c[8] if c[8] is not None else float(np.sum(c[5]))
+                    for c in group],
+                chains2=[c[6] for c in group] if cross else None,
+                engine=engine, device=device)
+        else:
+            shifts = [0.0 if c[8] is None
+                      else float(np.log(c[8]) - np.log(np.sum(c[5])))
+                      for c in group]
+            out = sharded_grid_auto_evidence(
+                chains, kmax=kmax, prior_volumes=pv, sumw_log_shifts=shifts,
+                engine=engine, device=device)
         for (imm, icc, *_), lnz in zip(group, out):
             mce[imm, icc, :] = lnz
     _stage_log()
@@ -759,10 +783,12 @@ def build_parser() -> ArgumentParser:
     p.add_argument("--seed", default=None, type=int,
                    help="RNG seed for the cross-evidence split")
     p.add_argument("--engine", default="auto", choices=list(ENGINES),
-                   help="kNN selection engine: 'auto' and 'cuda' (alias "
-                        "'pallas') run the CUDA kernels (the plain PyTorch "
-                        "selection on --device cpu); 'torch' (alias 'xla') "
-                        "the plain PyTorch selection")
+                   help="kNN selection engine: 'auto', 'cuda' (alias "
+                        "'pallas') and 'pallas_exact' run the exact CUDA "
+                        "kernel dispatch (the plain PyTorch selection on "
+                        "--device cpu); 'pallas_smalld' the small-d kernel "
+                        "where candidates are refined (d <= 16); 'torch' "
+                        "(alias 'xla') the plain PyTorch selection")
     p.add_argument("--device", default="cuda",
                    help="where the selection (and in device precision the "
                         "refinement and reduction) runs: 'cuda' (default; "
@@ -771,7 +797,8 @@ def build_parser() -> ArgumentParser:
                    choices=["device", "refine", "fast"],
                    help="device: f64 refinement and reduction on --device, "
                         "scalars-only fetch (the default); refine: host f64 "
-                        "candidate refinement; fast: not ported yet")
+                        "candidate refinement; fast: whitening, selection "
+                        "and estimator in f32 on --device (~1e-3 in ln Z)")
     p.add_argument("--distributed", action="store_true",
                    help="multi-host coordination (not ported yet)")
     return p
@@ -843,7 +870,7 @@ def main(argv=None) -> int:
             check_precision(args.precision)
             resolve_engine(args.engine)
             resolve_device(args.device)
-        except (NotImplementedError, ValueError, RuntimeError) as e:
+        except (ValueError, RuntimeError) as e:
             print(f"error: {e}", file=sys.stderr)
             return 2
     if args.procs > 1:

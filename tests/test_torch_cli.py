@@ -79,12 +79,38 @@ def test_cli_device_precision_matches_reference(toy_root, capsys, args):
 
 @pytest.mark.parametrize("args,message", [
     (["--json"], "ROADMAP.md Queue 1, item 8"),
-    (["--precision", "fast"], "ROADMAP.md Queue 1, item 6"),
-    (["--engine", "pallas_exact"], "K4"),
-], ids=["json", "fast", "pallas_exact"])
+], ids=["json"])
 def test_cli_unported_options_exit_2(toy_root, capsys, args, message):
     assert port_cli.main([toy_root, "--device", "cpu"] + args) == 2
     assert message in capsys.readouterr().err
+
+
+@pytest.mark.parametrize("args,atol", [
+    (["-k", "3", "--precision", "fast"], 1e-4),
+    (["-k", "3", "--engine", "pallas_exact"], 1e-9),
+    (["-k", "4", "--cross", "--seed", "1", "--engine", "pallas_smalld"],
+     1e-9),
+    (["-k", "3", "--engine", "pallas_smalld", "--precision", "device"],
+     1e-9),
+], ids=["fast", "pallas_exact", "pallas_smalld", "pallas_smalld_device"])
+def test_cli_fast_and_forced_engines_match_reference(toy_root, capsys, args,
+                                                     atol):
+    """The port's forced engines against the JAX CLI on its plain XLA
+    selection (a Pallas engine needs a TPU); ``fast`` is f32 on both sides,
+    the others refine in f64."""
+    engine = args.index("--engine") if "--engine" in args else None
+    jax_args = (args if engine is None
+                else args[:engine] + ["--engine", "xla"] + args[engine + 2:])
+    if engine is None:
+        jax_args = jax_args + ["--engine", "xla"]
+    assert jax_cli.main([toy_root, "-vb", "0"] + jax_args) == 0
+    want = _lnb_lines(capsys.readouterr().out)
+    assert port_cli.main([toy_root, "-vb", "0", "--device", "cpu"]
+                         + args) == 0
+    got = _lnb_lines(capsys.readouterr().out)
+    assert want and got.keys() == want.keys()
+    for key in want:
+        np.testing.assert_allclose(got[key], want[key], rtol=0, atol=atol)
 
 
 def test_cli_cuda_without_a_card_exits_2(toy_root, capsys, monkeypatch):

@@ -122,16 +122,28 @@ def test_device_precision_now_runs():
     assert "fused_s" in mce.timings
 
 
-@pytest.mark.parametrize("precision", ["fast"])
-def test_unported_precisions_raise(precision):
+def test_fast_precision_now_runs():
     theta, lnl = _chain(5, n=200)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        pt.evidence_fn(theta, lnl, precision=precision, device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        pt.MCEvidence({"samples": theta, "loglikes": lnl},
-                      precision=precision, device="cpu", verbose=0)
+    want = jx.evidence_fn(theta, lnl, precision="fast", engine="xla")
+    got = pt.evidence_fn(theta, lnl, precision="fast", device="cpu")
+    np.testing.assert_allclose(got, want, rtol=0, atol=1e-4)
+    mce = pt.MCEvidence({"samples": theta, "loglikes": lnl},
+                        precision="fast", device="cpu", verbose=0)
+    np.testing.assert_allclose(
+        mce.evidence(),
+        jx.MCEvidence({"samples": theta, "loglikes": lnl}, precision="fast",
+                      engine="xla", verbose=0).evidence(),
+        rtol=0, atol=1e-4)
+    assert "fused_s" in mce.timings
+
+
+def test_unknown_precision_raises():
+    theta, lnl = _chain(5, n=200)
     with pytest.raises(ValueError, match="unknown precision"):
         pt.evidence_fn(theta, lnl, precision="exact", device="cpu")
+    with pytest.raises(ValueError, match="unknown precision"):
+        pt.MCEvidence({"samples": theta, "loglikes": lnl},
+                      precision="exact", device="cpu", verbose=0)
 
 
 def test_cuda_without_a_card_raises(monkeypatch):

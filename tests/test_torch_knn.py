@@ -6,9 +6,12 @@ it is held to the Pallas kernels K1 (``knn_select_pallas_packed2``) and K2
 JAX package's own tests run them.  Criterion (scripts/tpu_kernel_cert.py):
 the d2 recomputed in f64 at the returned indices within 2^-10 relative, and
 identical self and absent slots.  The batched plain version is held to K5
-(``knn_select_pallas_packed2_batched``) the same way, member by member.  The
-tests marked ``cuda`` hold the hand-written kernels to the plain version on
-the card and skip elsewhere.
+(``knn_select_pallas_packed2_batched``) the same way, member by member, and
+the small-d wrapper (the plain version on the CPU) to K8 and K9
+(``knn_select_pallas_smalld[_batched]``).  The exact dispatch is held to K4
+(``knn_select_pallas``), whose returned d2 the ``fast`` precision consumes.
+The tests marked ``cuda`` hold the hand-written kernels to the plain version
+on the card and skip elsewhere.
 """
 
 import itertools
@@ -20,12 +23,15 @@ import torch
 
 import jax.numpy as jnp
 from mcevidence_tpu.ops.knn import exact_knn as jax_exact_knn
-from mcevidence_tpu.ops.knn_pallas import (knn_select_pallas_binned,
+from mcevidence_tpu.ops.knn_pallas import (knn_select_pallas,
+                                           knn_select_pallas_binned,
                                            knn_select_pallas_packed2,
-                                           knn_select_pallas_packed2_batched)
+                                           knn_select_pallas_packed2_batched,
+                                           knn_select_pallas_smalld,
+                                           knn_select_pallas_smalld_batched)
 from mcevidence_tpu_torch.ops import _build
 from mcevidence_tpu_torch.ops import knn_hopper as kh
-from mcevidence_tpu_torch.ops.knn import exact_knn, resolve_engine
+from mcevidence_tpu_torch.ops.knn import exact_knn, resolve_engine, selector
 
 REL_TOL = 2.0 ** -10
 
@@ -264,8 +270,8 @@ def test_cpu_tensors_take_the_plain_version_and_count_nothing():
 
 
 @pytest.mark.parametrize("engine,kernel", [
-    ("pallas_exact", "K4"), ("pallas_packed", "K6"), ("pallas_smalld", "K8"),
-    ("pallas_packed2", "K1"), ("pallas_binned", "K2/K3")])
+    ("pallas_packed", "K6"), ("pallas_packed2", "K1"),
+    ("pallas_binned", "K2/K3")])
 def test_unported_engines_raise_naming_their_kernel(engine, kernel):
     with pytest.raises(ValueError, match=kernel):
         resolve_engine(engine)
@@ -274,11 +280,153 @@ def test_unported_engines_raise_naming_their_kernel(engine, kernel):
 
 
 def test_engine_aliases_and_unknown_names():
-    assert [resolve_engine(e) for e in ("auto", "cuda", "pallas")] == \
-        ["cuda"] * 3
+    assert [resolve_engine(e) for e in ("auto", "cuda", "pallas",
+                                        "pallas_exact")] == ["cuda"] * 4
+    assert resolve_engine("pallas_smalld") == "smalld"
     assert [resolve_engine(e) for e in ("torch", "xla")] == ["torch"] * 2
     with pytest.raises(ValueError, match="unknown engine"):
         resolve_engine("tpu")
+
+
+def test_smalld_dispatch_follows_the_reference():
+    """knn.py:335-345: the small-d kernel for refine consumers at d <= 16;
+    wider inputs and directly-used distances take the exact dispatch."""
+    assert selector("pallas_smalld", width=16) is kh.knn_select_smalld
+    assert selector("pallas_smalld", batched=True,
+                    width=3) is kh.knn_select_smalld
+    assert selector("pallas_smalld", width=17) is kh.knn_select_cuda
+    assert selector("pallas_smalld", batched=True,
+                    width=17) is kh.knn_select_batched
+    assert selector("pallas_smalld", width=3,
+                    refine=False) is kh.knn_select_cuda
+    assert selector("pallas_exact", width=3) is kh.knn_select_cuda
+    assert selector("xla", width=3,
+                    refine=False) is kh.knn_select_torch
+
+
+# K4 (knn_select_pallas) takes its d2 by the matrix-product identity in f32,
+# the port by differences: they differ by the identity's rounding, a few
+# ulps of |q|^2 + |r|^2 (bounded here by 2^-18 of it), and near-tied rows
+# may swap indices, so d2 are compared sorted and indices where unambiguous
+K4_ULPS = 2.0 ** -18
+
+
+@pytest.mark.parametrize("case,k", [("self", 6), ("cross", 5),
+                                    ("self_nr_garbage", 5),
+                                    ("cross_k_gt_nr", 5),
+                                    ("self_duplicates", 6), ("self", 20),
+                                    ("cross", 30)])
+def test_exact_dispatch_matches_pallas_k4(case, k):
+    query, ref, _, self_mode, nr = K1_CASES[case]
+    want_d2, want_idx = (np.asarray(a) for a in knn_select_pallas(
+        jnp.asarray(query), jnp.asarray(ref), k, self_mode=self_mode,
+        interpret=True, nr=nr))
+    got_d2, got_idx = _plain(query, ref, k, self_mode, nr)
+    assert_same_selection(query, ref, got_d2, got_idx, want_d2, want_idx,
+                          self_mode=self_mode)
+    # the returned d2 themselves, which fast mode consumes
+    n_ref = ref.shape[0] if nr is None else nr
+    mu = ref[:n_ref].astype(np.float64).mean(axis=0)
+    scale = (np.sum((query - mu) ** 2, axis=1, keepdims=True)
+             + np.max(np.sum((ref[:n_ref] - mu) ** 2, axis=1)))
+    fin = np.isfinite(got_d2)
+    err = np.abs(np.sort(want_d2, 1)[fin] - got_d2[fin])
+    assert (err <= K4_ULPS * np.broadcast_to(scale, fin.shape)[fin]).all()
+    clear = _unambiguous_rows(_plain(query, ref, k + 1, self_mode, nr)[0])
+    if "duplicates" not in case:
+        np.testing.assert_array_equal(got_idx[clear], want_idx[clear])
+
+
+@pytest.mark.parametrize("case", ["self", "cross", "offset"])
+def test_exact_knn_unrefined_matches_reference(case):
+    """exact_knn(refine=False): sqrt of the selection's f32 d2, against the
+    JAX package's on its plain XLA selection (matrix identity in f32)."""
+    query, ref, k = _knn_inputs(np.random.default_rng(5), case)
+    want = jax_exact_knn(query, ref, k, refine=False, engine="xla")
+    got = exact_knn(query, ref, k, refine=False, device="cpu")
+    assert got.shape == want.shape and got.dtype == np.float64
+    np.testing.assert_array_equal(got[:, 0] == 0, want[:, 0] == 0)
+    np.testing.assert_allclose(got, want, rtol=2e-5, atol=1e-5)
+    refined = exact_knn(query, ref, k, device="cpu")
+    np.testing.assert_allclose(got, refined, rtol=1e-6, atol=1e-7)
+
+
+def _smalld_cases():
+    rng = np.random.default_rng(37)
+    out = {}
+    for d in (1, 3, 6, 8, 16):
+        x = rng.normal(size=(260, d)).astype(np.float32)
+        out[f"self_d{d}"] = (x, x, True, None)
+    q = rng.normal(size=(130, 7)).astype(np.float32)
+    r = rng.normal(size=(700, 7)).astype(np.float32)
+    garbage = np.concatenate([r[:300], np.full((100, 7), 1e8, np.float32)])
+    dup = rng.normal(size=(200, 3)).astype(np.float32)
+    dup[1::7] = dup[0::7][: len(dup[1::7])]
+    out.update({
+        "cross_d7": (q, r, False, None),
+        "self_nr_garbage_d7": (garbage[:300], garbage, True, 300),
+        "cross_nr_garbage_d7": (q, garbage, False, 300),
+        "cross_k_gt_nr_d7": (q[:8], r[:64], False, 3),
+        "self_duplicates_d3": (dup, dup, True, None),
+    })
+    return out
+
+
+SMALLD_CASES = _smalld_cases()
+
+
+@pytest.mark.parametrize("k", [9, 26])
+@pytest.mark.parametrize("case", sorted(SMALLD_CASES))
+def test_smalld_matches_pallas_k8(case, k):
+    """The smalld wrapper (its plain version here) against K8 in interpret
+    mode, fed as the JAX package feeds it: a width class padded with zero
+    columns and ``d_real`` the true width."""
+    query, ref, self_mode, nr = SMALLD_CASES[case]
+    d = query.shape[1]
+    width = 8 if d <= 8 else 16
+    qp = np.zeros((len(query), width), np.float32)
+    qp[:, :d] = query
+    rp = qp if ref is query else np.zeros((len(ref), width), np.float32)
+    rp[:, :d] = ref
+    want = knn_select_pallas_smalld(jnp.asarray(qp), jnp.asarray(rp), k,
+                                    self_mode=self_mode, interpret=True,
+                                    nr=nr, d_real=d)
+    kh.reset_launch_counts()
+    got = kh.knn_select_smalld(torch.from_numpy(query), torch.from_numpy(ref),
+                               k, self_mode=self_mode, nr=nr)
+    assert kh.knn_select_smalld.launches == 0
+    got = [t.numpy() for t in got]
+    assert_same_selection(query, ref, *got, *want, self_mode=self_mode)
+    if nr is not None:
+        assert got[1].max() < nr
+
+
+@pytest.mark.parametrize("k", [9, 44])
+@pytest.mark.parametrize("case", sorted(K5_CASES))
+def test_smalld_batched_matches_pallas_k9(case, k):
+    query, ref, self_mode, nr, nq = K5_CASES[case]
+    want_d2, want_idx = (np.asarray(a) for a in
+                         knn_select_pallas_smalld_batched(
+                             jnp.asarray(query), jnp.asarray(ref), k,
+                             self_mode=self_mode, interpret=True,
+                             nr=np.asarray(nr, np.int32)))
+    got_d2, got_idx = (a.numpy() for a in kh.knn_select_smalld(
+        torch.from_numpy(query), torch.from_numpy(ref), k,
+        self_mode=self_mode, nr=nr, nq=nq))
+    assert got_d2.shape == (len(nr), query.shape[1], min(k, ref.shape[1]))
+    for b, (n_q, n_r) in enumerate(zip(nq, nr)):
+        assert (got_idx[b, n_q:] == -1).all() and got_idx[b].max() < n_r
+        assert_same_selection(query[b, :n_q], ref[b], got_d2[b, :n_q],
+                              got_idx[b, :n_q], want_d2[b, :n_q],
+                              want_idx[b, :n_q], self_mode=self_mode)
+
+
+def test_smalld_wrapper_checks_its_inputs():
+    x = torch.zeros((10, 3))
+    with pytest.raises(ValueError, match="nq"):
+        kh.knn_select_smalld(x, x, 2, nq=[10])
+    with pytest.raises(ValueError, match=r"\(Nq, d\)"):
+        kh.knn_select_smalld(x, x[None], 2)
 
 
 def test_cuda_device_without_a_card_raises(monkeypatch):
@@ -363,3 +511,61 @@ def test_batched_kernel_matches_plain_on_card(case, k, cuda_device):
                               want[0][b, :n_q], want[1][b, :n_q],
                               got[0][b, :n_q], got[1][b, :n_q],
                               self_mode=self_mode)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k", [1, 9, 13, 14, 44, 106])
+@pytest.mark.parametrize("case", sorted(SMALLD_CASES))
+def test_smalld_kernel_matches_plain_on_card(case, k, cuda_device):
+    query, ref, self_mode, nr = SMALLD_CASES[case]
+    q = torch.from_numpy(query).to(cuda_device)
+    r = q if ref is query else torch.from_numpy(ref).to(cuda_device)
+    want = [t.cpu() for t in kh.knn_select_torch(q, r, k,
+                                                 self_mode=self_mode, nr=nr)]
+    kh.reset_launch_counts()
+    got = [t.cpu() for t in kh.knn_select_smalld(q, r, k,
+                                                 self_mode=self_mode, nr=nr)]
+    torch.cuda.synchronize()
+    assert kh.knn_select_smalld.launches == 1
+    assert_same_selection(query, ref, *want, *got, self_mode=self_mode)
+    # exact f32 differences in another order: the returned d2 within a few
+    # ulps of the plain version's
+    fin = torch.isfinite(want[0])
+    assert torch.allclose(got[0][fin], want[0][fin], rtol=2.0 ** -18,
+                          atol=0.0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k", [9, 26, 106])
+@pytest.mark.parametrize("case", sorted(K5_CASES))
+def test_smalld_batched_kernel_matches_plain_on_card(case, k, cuda_device):
+    query, ref, self_mode, nr, nq = K5_CASES[case]
+    q = torch.from_numpy(query).to(cuda_device)
+    r = q if ref is query else torch.from_numpy(ref).to(cuda_device)
+    want = [t.cpu() for t in kh.knn_select_torch_batched(
+        q, r, k, self_mode=self_mode, nr=nr, nq=nq)]
+    kh.reset_launch_counts()
+    got = [t.cpu() for t in kh.knn_select_smalld(
+        q, r, k, self_mode=self_mode, nr=nr, nq=nq)]
+    torch.cuda.synchronize()
+    assert kh.knn_select_smalld.launches == 1
+    for b, (n_q, n_r) in enumerate(zip(nq, nr)):
+        assert (got[1][b, n_q:] == -1).all()
+        assert int(got[1][b].max()) < n_r
+        assert_same_selection(query[b, :n_q], ref[b],
+                              want[0][b, :n_q], want[1][b, :n_q],
+                              got[0][b, :n_q], got[1][b, :n_q],
+                              self_mode=self_mode)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k", [5, 20])
+def test_exact_dispatch_returned_d2_on_card(k, cuda_device):
+    """The fast precision consumes the kernels' d2: within a few ulps of
+    the plain version's on the same inputs."""
+    query, ref, _, self_mode, nr = K1_CASES["cross"]
+    q = torch.from_numpy(query).to(cuda_device)
+    r = torch.from_numpy(ref).to(cuda_device)
+    want = kh.knn_select_torch(q, r, k)[0].cpu()
+    got = kh.knn_select_cuda(q, r, k)[0].cpu()
+    assert torch.allclose(got, want, rtol=2.0 ** -18, atol=0.0)

@@ -191,10 +191,57 @@ def test_mcevidence_device_precision_matches_reference(split, covtype,
     assert ("fused_s" in mce.timings) == (covtype is not None)
 
 
-def test_unported_fast_pipeline_raises():
-    for fn in (pipeline.fused_auto_evidence, pipeline.fast_auto_evidence):
-        with pytest.raises(NotImplementedError, match="item 6"):
-            fn(np.zeros((10, 2)), np.zeros(10))
+@pytest.mark.parametrize("case", ["auto", "weights", "offset",
+                                  "sum_adjusted_weights", "n_below_kmax"])
+def test_fast_pipeline_matches_reference(case):
+    """``fast_auto_evidence`` against the JAX one (f32 on both sides: the
+    matrix identity against differences, other summation orders)."""
+    theta, lnl, kw = _case(case)
+    kw = {key: val for key, val in kw.items() if key != "samples2"}
+    want = jax_pipeline.fast_auto_evidence(theta, lnl, engine="xla", **kw)
+    got = pipeline.fast_auto_evidence(theta, lnl, device="cpu", **kw)
+    assert got.shape == np.asarray(want).shape == (kw["kmax"] - 1,)
+    np.testing.assert_array_equal(np.isnan(got), np.isnan(want))
+    fin = np.isfinite(got)
+    np.testing.assert_allclose(got[fin], np.asarray(want)[fin], rtol=0,
+                               atol=1e-4)
+
+
+@pytest.mark.parametrize("case", ["auto", "cross", "weights", "offset",
+                                  "duplicates", "lattice_retry"])
+def test_smalld_device_precision_matches_reference(case, caplog):
+    """engine='pallas_smalld' (K8's counterpart) on the device path, with
+    the small-d wrapper sweeping the ndim true coordinates."""
+    theta, lnl, kw = _case(case)
+    want = jx.evidence_fn(theta, lnl, precision="device", engine="xla", **kw)
+    with caplog.at_level(logging.INFO, logger=LOGGER):
+        got = pt.evidence_fn(theta, lnl, precision="device", device="cpu",
+                             engine="pallas_smalld", **kw)
+    np.testing.assert_array_equal(np.isneginf(got), np.isneginf(want))
+    fin = np.isfinite(want)
+    np.testing.assert_allclose(got[fin], want[fin], rtol=0, atol=ATOL_REF)
+    if case == "lattice_retry":
+        assert any("re-running with 24 extra candidates" in r.getMessage()
+                   for r in caplog.records)
+
+
+@pytest.mark.parametrize("case", ["auto", "cross", "lattice_retry"])
+def test_smalld_refine_matches_reference(case):
+    theta, lnl, kw = _case(case)
+    want = jx.evidence_fn(theta, lnl, engine="xla", **kw)
+    got = pt.evidence_fn(theta, lnl, device="cpu", engine="pallas_smalld",
+                         **kw)
+    np.testing.assert_allclose(got, want, rtol=0, atol=ATOL_REF)
+
+
+def test_smalld_grid_device_refine_matches_reference():
+    chains, _ = _grid_chains()
+    kw = dict(kmax=3, prior_volumes=[1.0, 0.5, 2.0])
+    got = ring.sharded_grid_device_refine_evidence(
+        chains, device="cpu", engine="pallas_smalld", **kw)
+    want = jax_ring.sharded_grid_device_refine_evidence(chains, engine="xla",
+                                                        **kw)
+    np.testing.assert_allclose(got, want, rtol=0, atol=ATOL_JAX_GRID)
 
 
 def _grid_chains(cross=False):

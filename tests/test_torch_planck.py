@@ -207,15 +207,56 @@ def test_procs_forks_the_port(minigrid, tmp_path):
 
 
 @pytest.mark.parametrize("args,message", [
-    (["--precision", "fast"], "item 6"),
     (["--distributed"], "item 10"),
-    (["--engine", "pallas_smalld"], "K8"),
-], ids=["fast", "distributed", "pallas_smalld"])
+], ids=["distributed"])
 def test_unported_options_exit_2(minigrid, tmp_path, capsys, args, message):
     assert planck.main(["--rootdir", minigrid, "-o", str(tmp_path), "-v",
                         "0", "--device", "cpu"] + args) == 2
     assert message in capsys.readouterr().err
     assert not os.path.exists(os.path.join(str(tmp_path), "AllChains"))
+
+
+@pytest.mark.parametrize("extra,jax_extra,atol", [
+    (["--precision", "fast"], ["--precision", "fast", "--no-batch-cells"],
+     1e-4),
+    (["--engine", "pallas_smalld"], [], ATOL),
+    (["--engine", "pallas_smalld", "-nc", "1"], ["-nc", "1",
+                                                 "--no-batch-cells"], ATOL),
+], ids=["fast", "pallas_smalld", "pallas_smalld_nc1"])
+def test_main_fast_and_smalld_match_reference(twogrid, tmp_path, extra,
+                                              jax_extra, atol):
+    """``--precision fast`` against JAX's per-cell fast tables (its batched
+    fast program skips the f64 centring, tests/test_torch_fast.py), and
+    ``--engine pallas_smalld`` against JAX's plain XLA selection (a Pallas
+    engine needs a TPU) at the driver's defaults."""
+    want, got = str(tmp_path / "jax"), str(tmp_path / "port")
+    assert jax_planck.main(["--rootdir", twogrid, "-o", want, "-v", "0",
+                            "--engine", "xla"] + jax_extra) == 0
+    assert planck.main(["--rootdir", twogrid, "-o", got, "-v", "0",
+                        "--device", "cpu"] + extra) == 0
+    nchain = 1 if "-nc" in extra else 0
+    for ds in (DS, DS2):
+        name = f"mce_{ds}.csv"
+        assert_same_table(
+            pd.read_csv(os.path.join(_csvs(got, nchain), name), index_col=0),
+            pd.read_csv(os.path.join(_csvs(want, nchain), name),
+                        index_col=0), atol=atol)
+
+
+@pytest.mark.parametrize("mode", ["allchains_device", "nc2_device",
+                                  "allchains_cross_device",
+                                  "nc2_refine_batched"])
+def test_smalld_engine_matches_reference(minigrid, monkeypatch, mode):
+    """engine='pallas_smalld' through the grid's device and refine paths
+    (on the CPU the small-d wrapper takes its plain version) against the
+    JAX driver on its plain XLA selection."""
+    flags, env = MODES[mode]
+    kw = dict(dict(kmax=2, verbose=0), **flags)
+    got = planck.dataset_evidence(minigrid, DS, device="cpu",
+                                  engine="pallas_smalld", **kw)
+    want = jax_planck.dataset_evidence(minigrid, DS, engine="xla",
+                                       **dict(kw, batch_cells=False))
+    assert_same_table(got, want)
 
 
 def test_cuda_without_a_card_fails(minigrid, tmp_path, capsys, monkeypatch):
