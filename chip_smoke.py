@@ -27,6 +27,14 @@ fails before printing any result.
    returned d2 directly, so its legs also hold the returned f32 d2 to the
    plain version's within ``D2_REL_TOL`` (2^-18: the same f32 squared
    differences of the same centred inputs, summed in another order).
+   ``knn_select_packed`` at 11 and 12 low bits, 2-D and batched (self,
+   cross, garbage past a count, duplicates, k > nr, d = 6..32, k = 1..106,
+   heterogeneous members), and ``knn_select_prologue`` B and BC (self,
+   k = 1, 5, 13, N not a multiple of 128) are held to the plain version
+   with the same truncation: the same criterion, the returned d2 within one
+   quantum (``PACKED_D2_REL_TOL``, 2^-11: the sums are rounded
+   differently, so a d2 near a quantum's edge may fall on its other side),
+   and the truncated bits of every returned d2 zero.
 4. the main paths through the user's entry points, each with the launch
    counts set to 0 just before it and read just after:
    a. refine precision: ``evidence_fn`` auto, cross, a lattice whose ties
@@ -51,24 +59,46 @@ fails before printing any result.
       retry, and device auto, against the oracle at 1e-6; the grid with
       ``-nc 4 --engine pallas_smalld`` against the per-cell refine tables
       at 1e-6; ``knn_select_smalld`` must launch.
+   f. the forced engines ``pallas_packed``, ``pallas_packed2`` and
+      ``pallas_binned``: ``evidence_fn`` refine, device and fast (and the
+      fused ``MCEvidence`` fast), each leg with the wrapper the engine map
+      names (``ops/knn.py:selector``), against the oracle at 1e-6 (fast
+      3e-3); the lattice retry under ``pallas_packed``; the grid with
+      ``-nc 4`` (K7's counterpart) and AllChains (K6's) under
+      ``--engine pallas_packed`` against the per-cell refine tables at
+      1e-6.
+   g. the JSON-lines service: ``python -m mcevidence_tpu_torch.serve
+      --warmup 65536,8 --workers 2`` in a child process, and ``serve()``
+      in this one, answer refine, device, fast and ``pallas_packed``
+      requests and a bad one, in order, within 1e-6 (fast 3e-3) of
+      ``MCEvidence`` on the same root; the CLI's ``--json`` prints the
+      service's fields; ``python -m mcevidence_tpu_torch.compare`` on two
+      roots gives ``MCEvidence``'s ln E.
 5. times: each kernel against its plain version at the main paths' shapes
    (the small-d kernel beside the small-k and large-k kernels at d = 3, 6,
-   7, 8), each kernel's bound (``bound``: the least operations of the TPU
+   7, 8; the packed selections at k = 9 and 44 beside the exact ones; the
+   prologue study at k = 1 and 5 beside the small-k kernel), each kernel's
+   bound (``bound``: the least operations of the TPU
    kernel it replaces at the card's FP32 peak, or its bytes at the memory
-   rate), ``evidence_fn`` refine, device and fast wall times, and
-   the grid's per-dataset stage times, each printed with the card's name
-   and power limit.
+   rate), ``evidence_fn`` refine, device and fast wall times (also under
+   ``pallas_packed``), the warm service requests' ``wall_s``, and the
+   grid's per-dataset stage times, each printed with the card's name and
+   power limit.
 
 The line before the last is a JSON object of the kernels; the last line is
 ``{"ok": true, "device": {...}}``.
 """
 
+import contextlib
+import functools
+import io
 import json
 import logging
 import math
 import os
 import re
 import statistics
+import subprocess
 import sys
 import tempfile
 import time
@@ -78,6 +108,7 @@ import torch
 
 REL_TOL = 2.0 ** -10          # the kernel-cert criterion
 D2_REL_TOL = 2.0 ** -18       # returned f32 d2 vs the plain version's
+PACKED_D2_REL_TOL = 2.0 ** -11  # one quantum of a packed selection's d2
 DLNZ_TOL = 1e-6               # refine vs f64 oracle, tests/test_evidence.py
 FAST_DLNZ_TOL = 3e-3          # fast vs refine, tests/test_evidence.py:169
 FAST_GRID_TOL = 5e-3          # fast grid vs refine, tests/test_planck.py:161
@@ -85,7 +116,7 @@ FP32_PEAK = 67e12             # H100 SXM f32 outside the tensor cores, 700 W
 HBM_RATE = 3.35e12            # H100 SXM HBM3 bytes/s
 HERE = os.path.dirname(os.path.abspath(__file__))
 KERNELS = ("knn_select_small_k", "knn_select_large_k", "knn_select_batched",
-           "knn_select_smalld")
+           "knn_select_smalld", "knn_select_packed", "knn_select_prologue")
 
 
 def phase(name, **fields):
@@ -205,33 +236,55 @@ def check_selection(name, query, ref, kd2, kidx, pd2, pidx, self_mode,
     return rel, abs_err, returned_d2_rel(kd2, pd2)
 
 
-def report(name, k, nq, nr, rel, abs_err, d2_rel, returned):
-    """``returned``: the leg also holds the returned d2 to D2_REL_TOL."""
-    ok = rel <= REL_TOL and (not returned or d2_rel <= D2_REL_TOL)
+def truncated_bits_set(kd2, low_bits):
+    """Whether any finite returned d2 has one of its low ``low_bits``
+    mantissa bits set (the packed selections clear them)."""
+    fin = torch.isfinite(kd2)
+    bits = kd2[fin].contiguous().view(torch.int32) & ((1 << low_bits) - 1)
+    return bool(bits.any())
+
+
+def report(name, k, nq, nr, rel, abs_err, d2_rel, returned, low_bits=0):
+    """``returned``: the leg also holds the returned d2 to D2_REL_TOL, or
+    with ``low_bits`` (a packed selection against the plain version with
+    the same truncation) to one quantum, PACKED_D2_REL_TOL; its low bits
+    are checked to be zero on every leg."""
+    d2_tol = PACKED_D2_REL_TOL if low_bits else D2_REL_TOL
+    ok = rel <= REL_TOL and (not returned or d2_rel <= d2_tol)
     phase("kernel_vs_plain", leg=name, k=k, nq=nq, nr=nr, max_rel_d2_err=rel,
           max_abs_d2_err=abs_err, returned_d2_rel_err=d2_rel,
-          returned_d2_checked=returned, ok=ok)
+          returned_d2_checked=returned, returned_d2_tol=d2_tol,
+          low_bits=low_bits, ok=ok)
     if not ok:
         raise AssertionError(f"{name}: max_rel_d2_err {rel} > {REL_TOL} or "
-                             f"returned d2 {d2_rel} > {D2_REL_TOL}")
+                             f"returned d2 {d2_rel} > {d2_tol}")
     return rel, abs_err
 
 
 def compare(name, kernel, query, ref, k, self_mode, nr=None,
-            returned=False):
-    """One unbatched kernel-vs-plain leg on CUDA tensors."""
+            returned=False, low_bits=0, plain=None):
+    """One unbatched kernel-vs-plain leg on CUDA tensors; ``low_bits``:
+    the truncation the plain version applies too; ``plain``: another plain
+    version than ``knn_select_torch``."""
     from mcevidence_tpu_torch.ops.knn_hopper import knn_select_torch
     kd2, kidx = kernel(query, ref, k, self_mode=self_mode, nr=nr)
-    pd2, pidx = knn_select_torch(query, ref, k, self_mode=self_mode, nr=nr)
+    if plain is None:
+        pd2, pidx = knn_select_torch(query, ref, k, self_mode=self_mode,
+                                     nr=nr, low_bits=low_bits)
+    else:
+        pd2, pidx = plain(query, ref, k, self_mode=self_mode, nr=nr)
     torch.cuda.synchronize()
+    if low_bits and truncated_bits_set(kd2, low_bits):
+        raise AssertionError(f"{name}: a returned d2 keeps its low bits")
     res = check_selection(name, query, ref, kd2, kidx, pd2, pidx, self_mode,
                           nr)
     return report(name, k, query.shape[0],
-                  ref.shape[0] if nr is None else nr, *res, returned)
+                  ref.shape[0] if nr is None else nr, *res, returned,
+                  low_bits)
 
 
 def compare_batched(name, query, ref, k, self_mode, nr, nq, kernel=None,
-                    returned=False):
+                    returned=False, low_bits=0):
     """One batched kernel-vs-plain leg: member b's first nq[b] rows are
     checked like an unbatched leg against its first nr[b] reference rows;
     its padded query rows must come back absent."""
@@ -240,8 +293,10 @@ def compare_batched(name, query, ref, k, self_mode, nr, nq, kernel=None,
     kd2, kidx = kernel(query, ref, k, self_mode=self_mode, nr=nr, nq=nq)
     pd2, pidx = kh.knn_select_torch_batched(query, ref, k,
                                             self_mode=self_mode, nr=nr,
-                                            nq=nq)
+                                            nq=nq, low_bits=low_bits)
     torch.cuda.synchronize()
+    if low_bits and truncated_bits_set(kd2, low_bits):
+        raise AssertionError(f"{name}: a returned d2 keeps its low bits")
     rel = abs_err = d2_rel = 0.0
     for b, (n_q, n_r) in enumerate(zip(nq, nr)):
         if not bool((kidx[b, n_q:] == -1).all()) or not bool(
@@ -254,7 +309,7 @@ def compare_batched(name, query, ref, k, self_mode, nr, nq, kernel=None,
         rel, abs_err, d2_rel = max(rel, r_b), max(abs_err, a_b), max(d2_rel,
                                                                      d_b)
     return report(name, k, list(nq), list(nr), rel, abs_err, d2_rel,
-                  returned)
+                  returned, low_bits)
 
 
 def cuda_ms(fn, reps=5):
@@ -345,9 +400,6 @@ class StageLog(logging.Handler):
 
 
 def run_cli(argv):
-    import contextlib
-    import io
-
     from mcevidence_tpu_torch import cli
     buf = io.StringIO()
     with contextlib.redirect_stdout(buf):
@@ -439,7 +491,9 @@ def flops(kernel, nq, nr, d):
 FLOPS_TEXT = {"knn_select_small_k": "2*d a pair + 2*d a row (K1, K4)",
               "knn_select_large_k": "2*d a pair + 2*d a row (K2, K3, K4)",
               "knn_select_batched": "2*d a pair + 2*d a row (K5)",
-              "knn_select_smalld": "3*d a pair (K8, K9)"}
+              "knn_select_smalld": "3*d a pair (K8, K9)",
+              "knn_select_packed": "2*d a pair + 2*d a row (K6, K7, K1)",
+              "knn_select_prologue": "2*d a pair + 2*d a row (S1)"}
 
 
 def bound(kernel, n, d, k, batch=1):
@@ -460,7 +514,7 @@ def main():
               "needs an NVIDIA GPU", file=sys.stderr)
         return 1
     sys.path.insert(0, HERE)
-    from mcevidence_tpu_torch import MCEvidence, evidence_fn, planck
+    from mcevidence_tpu_torch import MCEvidence, cli, evidence_fn, planck
     from mcevidence_tpu_torch.ops import _build, knn_hopper as kh
     from mcevidence_tpu_torch.utils.device import (gpu_name_and_power_limit,
                                                    probe)
@@ -646,7 +700,77 @@ def main():
     errs["knn_select_smalld"].append(compare_batched(
         "smalld batched self duplicates B=4 d=3 k=9", qd3, qd3, 9, True,
         n_self, n_self, kernel=smalld))
-    del xd, garbage, qx, rx, q8, r8, qd, qq, rr, qc, xs, qs, g7, d3, qd3
+    # packed (K6/K7 at 11 low bits, K1 forced at 12) against the plain
+    # version with the same truncation, 2-D and batched
+    for lb in (11, 12):
+        packed = functools.partial(kh.knn_select_packed, low_bits=lb)
+        legs_packed = [
+            ("self N=65536 d=8 k=9", x, x, 9, True, None, True),
+            ("self duplicates k=9", xd, xd, 9, True, None, True),
+            ("cross Nq=Nr=32768 d=8 k=9", qx, rx, 9, False, None, True),
+            ("self nr=60000 garbage 1e8 k=9", garbage[:60000], garbage, 9,
+             True, 60000, False),
+            ("cross nr=60000 garbage 1e8 k=26", qx[:8192], garbage, 26,
+             False, 60000, False),
+            ("cross k>nr k=9", qx[:1000], rx, 9, False, 5, False),
+            ("cross k>nr k=44", qx[:1000], rx, 44, False, 20, False),
+            ("self k=1", x, x, 1, True, None, True),
+            ("self k=13", x, x, 13, True, None, True),
+            ("self k=14", x, x, 14, True, None, True),
+            ("self N=65536 d=8 k=44", x, x, 44, True, None, True),
+            ("self N=16384 d=8 k=106", x[:16384], x[:16384], 106, True,
+             None, True),
+            ("self duplicates k=26", xd, xd, 26, True, None, True),
+            ("self lattice 64000 d=3 k=32 ties", lat, lat, 32, True, None,
+             False),
+            ("self d=6 k=9", cu(rng.normal(size=(16384, 6))), None, 9, True,
+             None, True),
+            ("self d=16 k=9", cu(rng.normal(size=(16384, 16))), None, 9,
+             True, None, True),
+            ("self d=32 k=9", cu(rng.normal(size=(16384, 32))), None, 9,
+             True, None, False),
+            ("self d=32 k=44", cu(rng.normal(size=(8192, 32))), None, 44,
+             True, None, False),
+        ]
+        for name, q, r, k, self_mode, nr, ret in legs_packed:
+            r = q if r is None else r
+            errs["knn_select_packed"].append(compare(
+                f"packed low_bits={lb} {name}", packed, q, r, k, self_mode,
+                nr, ret, low_bits=lb))
+        qq = members(n_self, 16384, 6)
+        legs_packed_b = [("self B=4 d=6 k=9", qq, qq, 9, True, n_self,
+                          n_self),
+                         ("self duplicates B=4 d=8 k=9", qd, qd, 9, True,
+                          n_self, n_self)]
+        for k in (6, 26, 106):
+            legs_packed_b += [
+                (f"self B=4 n=16384/12000/9000/600 d=8 k={k}", q8, q8, k,
+                 True, n_self, n_self),
+                (f"cross B=4 nr=16384/14000/7000/20 d=8 k={k}", q8, r8, k,
+                 False, n_ref, n_self)]
+        for name, q, r, k, self_mode, nr, nq in legs_packed_b:
+            errs["knn_select_packed"].append(compare_batched(
+                f"packed low_bits={lb} batched {name}", q, r, k, self_mode,
+                nr, nq, kernel=packed, low_bits=lb))
+    # the prologue study (S1), K1's function at 12 low bits: N not a
+    # multiple of 128, so the sentinel rows are in play
+    xp = cu(rng.normal(size=(65536 - 37, 8)))
+    for variant in ("B", "BC"):
+        prologue = functools.partial(kh.knn_select_prologue, variant=variant)
+        for name, q, r, k, nr in [
+                ("self N=65499 d=8 k=1", xp, xp, 1, None),
+                ("self N=65499 d=8 k=5", xp, xp, 5, None),
+                ("self N=65499 d=8 k=13", xp, xp, 13, None),
+                ("self nr=60000 garbage 1e8 k=5", garbage[:60000], garbage,
+                 5, 60000),
+                ("self N=1000 d=20 k=5", cu(rng.normal(size=(1000, 20))),
+                 None, 5, None)]:
+            r = q if r is None else r
+            errs["knn_select_prologue"].append(compare(
+                f"prologue {variant} {name}", prologue, q, r, k, True, nr,
+                nr is None, low_bits=12,
+                plain=kh.knn_select_prologue_torch))
+    del xd, garbage, qx, rx, q8, r8, qd, qq, rr, qc, xs, qs, g7, d3, qd3, xp
     torch.cuda.empty_cache()
 
     total = {n: 0 for n in KERNELS}
@@ -754,7 +878,47 @@ def main():
     hold_to_oracle("smalld_refine_retry", sd_retry, oracles["retry"])
     hold_to_oracle("smalld_device_auto", sd_dev, oracles["auto"])
 
-    # 4c/4d/4e. the grid driver: each run against the per-cell refine
+    # 4f. the forced engines: each precision with the wrapper the engine
+    # map (ops/knn.py:selector) names for its path
+    forced = {
+        "pallas_packed": {"refine": "knn_select_packed",
+                          "device": "knn_select_packed",
+                          "fast": "knn_select_packed"},
+        "pallas_packed2": {"refine": "knn_select_packed",
+                           "device": "knn_select_packed",
+                           "fast": "knn_select_packed"},
+        "pallas_binned": {"refine": "knn_select_large_k",
+                          "device": "knn_select_packed",
+                          "fast": "knn_select_large_k"},
+    }
+    for engine, legs in forced.items():
+        for precision, kernel in legs.items():
+            with Counted(f"{engine} {precision} evidence_fn", total) as c:
+                got = evidence_fn(theta, lnl, kmax=5, precision=precision,
+                                  engine=engine, device="cuda")
+                if precision == "fast":
+                    fused_f = MCEvidence(
+                        {"samples": theta, "loglikes": lnl}, kmax=5,
+                        verbose=0, precision="fast", engine=engine,
+                        device="cuda").evidence()
+            c.require(kernel)
+            tol = FAST_DLNZ_TOL if precision == "fast" else DLNZ_TOL
+            hold_to_oracle(f"{engine}_{precision}_auto", got,
+                           oracles["auto"], tol)
+            if precision == "fast":
+                hold_to_oracle(f"{engine}_fast_mcevidence_fused", fused_f,
+                               oracles["auto"], tol)
+    # the lattice's ties make the refine guard re-select through the
+    # large-k body (k = 4*6+8 = 32) under 11-bit truncation
+    with Counted("pallas_packed refine lattice retry", total) as c:
+        pk_retry = evidence_fn(lat_theta, lat_lnl, kmax=2,
+                               engine="pallas_packed", device="cuda")
+    if c.counts["knn_select_packed"] < 2:
+        raise AssertionError("pallas_packed lattice: the guard did not "
+                             "re-select")
+    hold_to_oracle("pallas_packed_refine_retry", pk_retry, oracles["retry"])
+
+    # 4c/4d/4e/4f. the grid driver: each run against the per-cell refine
     # tables of its mode
     datasets = planck.DATASETS[:2]
     stages = StageLog()
@@ -795,6 +959,10 @@ def main():
              "knn_select_batched", FAST_GRID_TOL),
             ("-nc 4", "fast", ["--precision", "fast"], "knn_select_batched",
              FAST_GRID_TOL),
+            ("-nc 4", "pallas_packed", ["--engine", "pallas_packed"],
+             "knn_select_packed", DLNZ_TOL),
+            ("AllChains", "pallas_packed", ["--engine", "pallas_packed"],
+             "knn_select_packed", DLNZ_TOL),
             ("-nc 4", "pallas_smalld", ["--engine", "pallas_smalld"],
              "knn_select_smalld", DLNZ_TOL),
         ]
@@ -822,9 +990,96 @@ def main():
                 raise AssertionError(f"grid {label} {variant}: |dlnZ| "
                                      f"{worst} > {tol}")
     grid_log.removeHandler(stages)
+
+    # 4g. the JSON-lines service (a child process, and in-process), --json
+    # and the model comparison, against MCEvidence on the same roots
+    from mcevidence_tpu_torch import serve
+    from mcevidence_tpu_torch.chains.reader import load_chains
+    from mcevidence_tpu_torch.priors.params_info import get_prior_volume
+    with tempfile.TemporaryDirectory() as tmp:
+        roots = []
+        for i, sub in enumerate(("a", "b")):
+            os.makedirs(os.path.join(tmp, sub))
+            roots.append(write_toy_root(os.path.join(tmp, sub),
+                                        np.random.default_rng(3 + i)))
+        root = roots[0]
+        pv, ndim = get_prior_volume(root, cosmo=True)
+        reference = MCEvidence(load_chains(root), priorvolume=pv, ndim=ndim,
+                               kmax=3, verbose=0, device="cuda").evidence()
+        reqs = [{"id": "refine", "root": root, "kmax": 3},
+                {"id": "device", "root": root, "kmax": 3,
+                 "precision": "device"},
+                {"id": "fast", "root": root, "kmax": 3, "precision": "fast"},
+                {"id": "pallas_packed", "root": root, "kmax": 3,
+                 "engine": "pallas_packed"},
+                {"id": "bad", "root": root, "kmax": 3, "bogus": 1}]
+        lines = "".join(json.dumps(r) + "\n" for r in reqs)
+        t0 = time.perf_counter()
+        proc = subprocess.run(
+            [sys.executable, "-m", "mcevidence_tpu_torch.serve", "--warmup",
+             "65536,8", "--workers", "2"], input=lines, capture_output=True,
+            text=True, cwd=HERE, timeout=600)
+        service_s = time.perf_counter() - t0
+        if proc.returncode != 0:
+            raise AssertionError(f"service: exit {proc.returncode}\n"
+                                 f"{proc.stderr[-3000:]}")
+        resps = [json.loads(ln) for ln in proc.stdout.splitlines()
+                 if ln.strip()]
+        with Counted("service in-process, workers=2", total) as c:
+            out = io.StringIO()
+            rc = serve.serve(io.StringIO(lines), out, workers=2,
+                             device="cuda")
+        c.require("knn_select_small_k", "knn_select_packed")
+        inproc = [json.loads(ln) for ln in out.getvalue().splitlines()]
+        for label, got in (("child", resps), ("in-process", inproc)):
+            if [r.get("id") for r in got] != [r["id"] for r in reqs]:
+                raise AssertionError(f"service {label}: responses out of "
+                                     f"order: {got}")
+            if got[-1]["ok"] or not all(r["ok"] for r in got[:-1]):
+                raise AssertionError(f"service {label}: {got}")
+            for r in got[:-1]:
+                hold_to_oracle(f"service_{label}_{r['id']}", r["lnz"],
+                               reference, FAST_DLNZ_TOL if r["id"] == "fast"
+                               else DLNZ_TOL)
+        if rc != 0:
+            raise AssertionError(f"service in-process: rc {rc}")
+        with contextlib.redirect_stdout(io.StringIO()) as buf:
+            cli_rc = cli.main([root, "-k", "3", "--json"])
+        one = json.loads(buf.getvalue().strip().splitlines()[-1])
+        same = (cli_rc == 0 and set(one) == set(resps[0])
+                and np.allclose(one["lnz"], resps[0]["lnz"], rtol=0,
+                                atol=1e-9))
+        phase("cli_json", fields=sorted(one), lnz=one["lnz"],
+              service_lnz=resps[0]["lnz"], ok=same)
+        if not same:
+            raise AssertionError(f"--json: {one} vs {resps[0]}")
+        proc = subprocess.run(
+            [sys.executable, "-m", "mcevidence_tpu_torch.compare",
+             f"A={roots[0]}", f"B={roots[1]}", "-k", "3", "--json"],
+            capture_output=True, text=True, cwd=HERE, timeout=600)
+        if proc.returncode != 0:
+            raise AssertionError(f"compare: exit {proc.returncode}\n"
+                                 f"{proc.stderr[-3000:]}")
+        rows = json.loads(proc.stdout.strip().splitlines()[-1])
+        gaps = []
+        for row, r in zip(rows, roots):
+            want = MCEvidence(r, kmax=3, priorvolume=row["PriorVol"],
+                              ndim=row["ndim"], verbose=0,
+                              device="cuda").evidence()
+            gaps.append(float(np.max(np.abs(np.asarray(row["lnE"]) - want))))
+        ok = len(rows) == 2 and max(gaps) <= 1e-9
+        phase("compare", models=[r["model"] for r in rows],
+              lnE=[r["lnE"] for r in rows], max_abs_dlnz_vs_mcevidence=gaps,
+              ok=ok)
+        if not ok:
+            raise AssertionError(f"compare rows: {rows}, gaps {gaps}")
+    phase("service", requests=[r["id"] for r in reqs],
+          child_wall_s=service_s, ok=True)
+
     phase("launches", path="main paths, total", **total)
     for name, n in total.items():
-        if n == 0:
+        # the prologue study is no user's path: it has its own, in phase 5
+        if n == 0 and name != "knn_select_prologue":
             raise AssertionError(f"{name} was never launched by the main "
                                  "paths")
 
@@ -853,11 +1108,24 @@ def main():
                           f"self N=65536 d={d} k={k} (beside smalld)"))
     timed.append(("knn_select_smalld", smalld, lat_t, 3, 32,
                   "self N=64000 d=3 k=32 (smalld, lattice retry)"))
+    # the packed selections beside the exact kernels at the refine path's
+    # first pass and retry
+    for lb, tpu in ((11, "K6"), (12, "K1 forced")):
+        for k in (9, 44):
+            timed.append(("knn_select_packed", functools.partial(
+                kh.knn_select_packed, low_bits=lb), x, 8, k,
+                f"self N=65536 d=8 k={k} low_bits={lb} ({tpu})",
+                functools.partial(kh.knn_select_torch, low_bits=lb)))
+            if lb == 11:
+                timed.append(("knn_select_small_k" if k < 14
+                              else "knn_select_large_k",
+                              small if k < 14 else large, x, 8, k,
+                              f"self N=65536 d=8 k={k} (beside K6, K1)"))
     times = {}
-    for name, fn, q, d, k, shape in timed:
+    for name, fn, q, d, k, shape, *plain in timed:
+        plain = plain[0] if plain else kh.knn_select_torch
         ms = cuda_ms(lambda: fn(q, q, k, self_mode=True))
-        plain_ms = cuda_ms(lambda: kh.knn_select_torch(q, q, k,
-                                                       self_mode=True))
+        plain_ms = cuda_ms(lambda: plain(q, q, k, self_mode=True))
         pairs = float(q.shape[0]) * q.shape[0]
         b_ms, b_by = bound(name, q.shape[0], d, k)
         phase("time", kernel=name, shape=shape, ms=ms, plain_ms=plain_ms,
@@ -865,6 +1133,49 @@ def main():
               pairs_per_s=pairs / (ms * 1e-3),
               plain_pairs_per_s=pairs / (plain_ms * 1e-3), gpu=smi)
         times.setdefault(name, (ms, plain_ms, b_ms, b_by))
+    # the prologue study's own path (scripts/bench_prologue.py's main): a
+    # gate against K1's function without the cuts, then each variant timed
+    # at its operating points (:196-210) beside that function and the
+    # small-k kernel the default dispatch runs
+    k1 = functools.partial(kh.knn_select_packed, low_bits=12)
+    plain12 = functools.partial(kh.knn_select_torch, low_bits=12)
+    study = {n: 0 for n in KERNELS}
+    with Counted("prologue study", study) as c:
+        gate = x[:4096]
+        want = k1(gate, gate, 5, self_mode=True)
+        for variant in ("B", "BC"):
+            got = kh.knn_select_prologue(gate, gate, 5, variant=variant)
+            same = all(torch.equal(a, b) for a, b in zip(got, want))
+            phase("prologue_gate", variant=variant, shape="self N=4096 d=8 "
+                  "k=5", identical_to_k1=same, ok=same)
+            if not same:
+                raise AssertionError(f"prologue {variant}: differs from K1's "
+                                     "function without the cuts")
+        # k = 5 first: at k = 1 in self mode the plain version has only the
+        # self slot to fill, so the kernels line quotes k = 5
+        for k in (5, 1):
+            for name, fn, label, plain in [
+                    ("knn_select_small_k", small, "shipped small-k", None),
+                    ("knn_select_packed", k1, "K1 forced", plain12),
+                    ("knn_select_prologue", functools.partial(
+                        kh.knn_select_prologue, variant="B"), "S1 B",
+                     plain12),
+                    ("knn_select_prologue", functools.partial(
+                        kh.knn_select_prologue, variant="BC"), "S1 BC",
+                     plain12)]:
+                plain = plain or kh.knn_select_torch
+                ms = cuda_ms(lambda: fn(x, x, k, self_mode=True))
+                plain_ms = cuda_ms(lambda: plain(x, x, k, self_mode=True))
+                b_ms, b_by = bound(name, x.shape[0], 8, k)
+                phase("time", kernel=name,
+                      shape=f"self N=65536 d=8 k={k} ({label})", ms=ms,
+                      plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+                      share_of_bound=b_ms / ms,
+                      pairs_per_s=65536.0 ** 2 / (ms * 1e-3), gpu=smi)
+                times.setdefault(name, (ms, plain_ms, b_ms, b_by))
+    c.require("knn_select_prologue")
+    # the study's own kernel; its K1 and small-k launches only time them
+    total["knn_select_prologue"] = study["knn_select_prologue"]
     qb = cu(np.stack([bench_chain(16384, 8, seed=s)[0] for s in range(4)])
             - np.arange(1.0, 9.0))
     nb = [16384] * 4
@@ -890,6 +1201,17 @@ def main():
               ms=sd_ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
               share_of_bound=b_ms / sd_ms, pairs_per_s=pairs / (sd_ms * 1e-3),
               plain_pairs_per_s=pairs / (plain_ms * 1e-3), gpu=smi)
+        # the packed selection's batched form (K7) on the same batch
+        pk_ms = cuda_ms(lambda: kh.knn_select_packed(
+            qb, qb, k, self_mode=True, nr=nb, nq=nb))
+        pk_plain_ms = cuda_ms(lambda: kh.knn_select_torch_batched(
+            qb, qb, k, self_mode=True, nr=nb, nq=nb, low_bits=11))
+        b_ms, b_by = bound("knn_select_packed", 16384, 8, k, batch=4)
+        phase("time", kernel="knn_select_packed",
+              shape=f"self B=4 Nq=Nr=16384 d=8 k={k} low_bits=11 (K7)",
+              ms=pk_ms, plain_ms=pk_plain_ms, bound_ms=b_ms, bound_by=b_by,
+              share_of_bound=b_ms / pk_ms, pairs_per_s=pairs / (pk_ms * 1e-3),
+              plain_pairs_per_s=pairs / (pk_plain_ms * 1e-3), gpu=smi)
     walls = {}
     for precision in ("refine", "device", "fast", "fast", "device",
                       "refine"):
@@ -900,6 +1222,21 @@ def main():
           first_refine_s=auto_s, first_device_s=dev_auto_s,
           first_fast_s=fast_auto_s, refine_s=walls["refine"],
           device_s=walls["device"], fast_s=walls["fast"], gpu=smi)
+    walls = {}
+    for precision in ("refine", "device", "fast", "fast", "device",
+                      "refine"):
+        t0 = time.perf_counter()
+        evidence_fn(theta, lnl, kmax=5, precision=precision,
+                    engine="pallas_packed", device="cuda")
+        walls.setdefault(precision, []).append(time.perf_counter() - t0)
+    phase("time_evidence_fn", engine="pallas_packed",
+          shape="auto N=65536 d=8 kmax=5, no ingest",
+          refine_s=walls["refine"], device_s=walls["device"],
+          fast_s=walls["fast"], gpu=smi)
+    phase("time_service", shape="toy root 2 x 3000 rows d=3 kmax=3, after "
+          "--warmup 65536,8, --workers 2",
+          wall_s={r["id"]: r.get("wall_s") for r in resps},
+          child_process_s=service_s, gpu=smi)
     fused_s = []
     for _ in range(3):
         mce = MCEvidence({"samples": theta, "loglikes": lnl}, kmax=5,
@@ -936,6 +1273,13 @@ def main():
         {"name": "knn_select_smalld", "route": "cuda",
          "source": "mcevidence_tpu_torch/csrc/knn_smalld.cu",
          "replaces": f"{pallas}:546", "also_replaces": f"{pallas}:634"},
+        {"name": "knn_select_packed", "route": "cuda",
+         "source": "mcevidence_tpu_torch/csrc/knn_packed.cu",
+         "replaces": f"{pallas}:258",
+         "also_replaces": f"{pallas}:398 {pallas}:275"},
+        {"name": "knn_select_prologue", "route": "cuda",
+         "source": "mcevidence_tpu_torch/csrc/knn_packed.cu",
+         "replaces": "scripts/bench_prologue.py:65"},
     ]
     for kern in kernels:
         nm = kern["name"]

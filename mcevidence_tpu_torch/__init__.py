@@ -6,9 +6,11 @@ ingestion, burn-in, thinning and split, whitening, the O(N^2 d)
 nearest-neighbour candidate selection in hand-written CUDA kernels on an
 NVIDIA Hopper GPU (one chain, or a batch of chains in one launch), the f64
 refinement and estimator on the host or on the card (or the f32 estimator
-on the card in ``fast`` precision), and the Planck grid driver
-(``python -m mcevidence_tpu_torch.planck``).  It imports torch and numpy,
-never jax.
+on the card in ``fast`` precision), the Planck grid driver
+(``python -m mcevidence_tpu_torch.planck``), the JSON-lines service
+(``python -m mcevidence_tpu_torch.serve``), the model comparison
+(``python -m mcevidence_tpu_torch.compare``) and the reference's
+``MCSamples`` surface.  It imports torch and numpy, never jax.
 
 The API is exported lazily, so that importing the package stays cheap.
 """
@@ -17,6 +19,9 @@ from ._version import __version__
 
 _EXPORTS = {
     "MCEvidence": "evidence",
+    "MCSamples": "compat",
+    "split_var": "compat",
+    "compare_models": "compare",
     "evidence_fn": "evidence",
     "evidence_with_error": "evidence",
     "evidence_bootstrap": "evidence",

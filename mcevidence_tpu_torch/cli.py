@@ -5,9 +5,9 @@ Mirrors the reference CLI flag set (reference MCEvidence.py:1342-1474):
 --paramsfile, --burn/--burnlen, --thin/--thinlen, -vb/--verbose,
 -pv/--pvolume, --allparams, --cross, --version — with the JAX
 package's additions (--seed, --engine, --precision, --unit-volume-fallback,
---error, --bootstrap, --parse-cache) and --device, which says where the kNN
-selection runs.  ``--json`` is not ported yet and exits 2 with the ROADMAP
-item it waits for.
+--error, --bootstrap, --parse-cache, --json) and --device, which says where
+the kNN selection runs.  ``--json`` prints one line of the JSON-lines
+service's protocol, through ``serve.handle_request``.
 
 Run as ``python -m mcevidence_tpu_torch <root> [...]``.
 """
@@ -21,7 +21,7 @@ from argparse import ArgumentParser
 from ._version import __version__
 from .evidence import (MCEvidence, check_precision, evidence_bootstrap,
                        evidence_with_error)
-from .ops.knn import ENGINES, resolve_engine
+from .ops.knn import ENGINE_HELP, ENGINES, resolve_engine
 from .priors.params_info import get_prior_volume
 from .registry import load_params_file
 from .utils.device import resolve_device
@@ -89,13 +89,7 @@ def build_parser() -> ArgumentParser:
                    help="RNG seed for split/thinning (default: "
                         "nondeterministic, like the reference)")
     p.add_argument("--engine", default="auto", choices=list(ENGINES),
-                   help="kNN selection engine: 'auto', 'cuda' (alias "
-                        "'pallas') and 'pallas_exact' run the exact "
-                        "k-dependent CUDA kernel dispatch (the plain PyTorch "
-                        "selection on --device cpu); 'pallas_smalld' the "
-                        "small-d kernel where candidates are refined "
-                        "(d <= 16); 'torch' (alias 'xla') the plain PyTorch "
-                        "selection")
+                   help=ENGINE_HELP)
     p.add_argument("--device", default="cuda",
                    help="where the kNN selection runs: 'cuda' (default; "
                         "fails without a GPU) or 'cpu'")
@@ -121,16 +115,43 @@ def build_parser() -> ArgumentParser:
                         "(keyed on path+size+mtime)")
     p.add_argument("--json", action="store_true",
                    help="print ONE machine-readable JSON line instead of "
-                        "the human report (not ported yet)")
+                        "the human report (same fields as the "
+                        "mcevidence_tpu_torch.serve protocol)")
     return p
+
+
+def _json_main(args) -> int:
+    """One-shot machine-readable mode: one request through the service's
+    handler, so the two protocols cannot drift; logging goes to stderr, so
+    -vb is honoured.  ``--device`` is a keyword of the handler, not a
+    request field: the protocol has none."""
+    import json
+
+    from .serve import handle_request
+    configure(args.verbose)
+    if args.parse_cache:
+        from .chains.reader import set_parse_cache
+        set_parse_cache(args.parse_cache)
+    if args.paramsfile:
+        load_params_file(args.paramsfile)
+    req = {"root": args.root_name, "kmax": args.kmax,
+           "idchain": args.idchain, "ndim": args.ndim,
+           "burn": args.burnlen, "thin": args.thinlen, "cross": args.cross,
+           "seed": args.seed, "priorvolume": args.priorvolume,
+           "allparams": args.allparams,
+           "unit_volume_fallback": args.unit_volume_fallback,
+           "engine": args.engine, "precision": args.precision,
+           "error": args.error, "bootstrap": args.bootstrap}
+    resp = handle_request({k: v for k, v in req.items() if v is not None},
+                          device=args.device)
+    print(json.dumps(resp))
+    return 0 if resp.get("ok") else 2
 
 
 def main(argv=None) -> int:
     args = build_parser().parse_args(argv)
     if args.json:
-        print("error: --json is not ported yet; it waits for the JSON-lines "
-              "service (ROADMAP.md Queue 1, item 8)", file=sys.stderr)
-        return 2
+        return _json_main(args)
     try:
         check_precision(args.precision)
         resolve_engine(args.engine)

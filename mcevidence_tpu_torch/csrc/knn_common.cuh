@@ -1,9 +1,13 @@
 // The kNN selection kernels: candidate keys, the two selection bodies and
-// their launchers, templated on a row layout.  Each source instantiates the
-// bodies for its own layout and defines its C entry points:
-//   knn_select.cu  Padded<DP>: rows zero-padded to DP = 8/16/32/64 columns
-//   knn_smalld.cu  Compact<D>: rows of exactly D <= 16 columns
-// so the two sources compile in parallel.
+// their launchers, templated on a row layout and a key policy.  Each source
+// instantiates the bodies for its own layouts and keys and defines its C
+// entry points:
+//   knn_select.cu  Padded<DP> (knn_padded.cuh): rows zero-padded to
+//                  DP = 8/16/32/64 columns; exact keys
+//   knn_smalld.cu  Compact<D>: rows of exactly D <= 16 columns; exact keys
+//   knn_packed.cu  Padded<DP>; truncated keys (TruncKey<B>), and the
+//                  prologue-cut small-k body
+// so the sources compile in parallel.
 //
 // Shared contract (the same as the TPU kernels they replace), per batch
 // member b = blockIdx.y of a batch of B members laid out back to back:
@@ -27,9 +31,14 @@
 // Distances are sums of squared differences in f32 FMA on the CUDA cores, in
 // coordinate order: no matrix-product identity, so no cancellation, no TF32
 // and d2 >= 0 by construction.  Padding columns add exactly 0, so both
-// layouts give the same d2 bit for bit.  Candidates are ranked by the 64-bit
-// key (float_bits(d2) << 32) | index, which orders non-negative floats
-// exactly and breaks ties by the smaller index; the selection is exact.
+// layouts give the same d2 bit for bit.  Candidates are ranked by a 64-bit
+// key (bits << 32) | index, which breaks ties by the smaller index:
+//   ExactKey     bits = float_bits(d2), which orders non-negative floats
+//                exactly; the selection is exact
+//   a policy K   any functor K()(d2, j) giving such a key, e.g. with the low
+//                mantissa bits of d2 cleared (knn_packed.cu's TruncKey)
+// A slot's d2 is decoded from its key, so a truncating policy returns the
+// truncated d2.  +inf keeps its bits under truncation (its mantissa is 0).
 //
 // A layout L provides
 //   kWidth       floats per row as laid out
@@ -79,6 +88,25 @@ __device__ __forceinline__ unsigned long long make_key(float d2, int j) {
     return (static_cast<unsigned long long>(__float_as_uint(d2)) << 32) |
            static_cast<unsigned>(j);
 }
+
+// the exact ranking: every bit of d2
+struct ExactKey {
+    __device__ __forceinline__ unsigned long long operator()(float d2,
+                                                             int j) const {
+        return make_key(d2, j);
+    }
+};
+
+// Compile-time cuts of the small-k body (the prologue study, knn_packed.cu):
+//   kCutBound  the reference allocation is padded by the caller to a multiple
+//              of kTile with sentinel rows (1e18 in every column) and nr is
+//              that padded count: every tile is full, so the inner loop has
+//              no min(kTile, nr - base) bound; a slot whose d2 > 1e30 (a
+//              sentinel) comes back absent
+//   kCutPin    the self test j != self_row runs only in the one tile whose
+//              base is the block's first query row (kTile == kSmallThreads)
+constexpr int kCutBound = 1;
+constexpr int kCutPin = 2;
 
 __device__ __forceinline__ void write_slot(float* out_d2, int* out_idx,
                                            long long pos,
@@ -152,15 +180,21 @@ __device__ __forceinline__ void merge_lane_lists(
 // shared tile of kTile rows; every thread reads the same tile row at the
 // same time (a broadcast, no bank conflict).  Each thread keeps its sorted
 // top-KP keys in registers (KP is k rounded up to a power of two, so every
-// index into the list is static) and inserts by one compare-swap pass.
+// index into the list is static) and inserts by one compare-swap pass.  Key
+// ranks the candidates; Cuts (a mask of kCutBound and kCutPin) are the
+// prologue study's compile-time cuts.
 // ---------------------------------------------------------------------------
 
-template <class L, int KP>
+static_assert(kTile == kSmallThreads,
+              "kCutPin: one tile holds all of a block's self rows");
+
+template <class L, int KP, class Key = ExactKey, int Cuts = 0>
 __global__ void __launch_bounds__(kSmallThreads)
 knn_small_k_kernel(const float* __restrict__ q, const float* __restrict__ r,
                    Members m, int k, int self_mode,
                    float* __restrict__ out_d2, int* __restrict__ out_idx) {
     constexpr int W = L::kWidth;
+    const Key key_of{};
     __shared__ __align__(16) float tile[L::kTileFloats];
     const int b = blockIdx.y;
     const int nq = m.queries(b);
@@ -188,15 +222,24 @@ knn_small_k_kernel(const float* __restrict__ q, const float* __restrict__ r,
     for (int s = 0; s < KP; ++s) best[s] = kEmpty;
 
     for (int base = 0; base < nr; base += kTile) {
-        const int rows = min(kTile, nr - base);
+        const int rows = (Cuts & kCutBound) ? kTile : min(kTile, nr - base);
         __syncthreads();
         L::stage(tile, r, base, rows);
         __syncthreads();
         if (!active) continue;
+        if ((Cuts & kCutPin) && base != first) {
+            // no self row of this block lies in this tile
+            for (int jj = 0; jj < rows; ++jj) {
+                const unsigned long long key =
+                    key_of(L::tile_dist(qv, tile, jj), base + jj);
+                if (key < best[KP - 1]) insert_sorted<KP>(best, key);
+            }
+            continue;
+        }
         for (int jj = 0; jj < rows; ++jj) {
             const int j = base + jj;
             const unsigned long long key =
-                make_key(L::tile_dist(qv, tile, jj), j);
+                key_of(L::tile_dist(qv, tile, jj), j);
             if (key < best[KP - 1] && j != self_row)
                 insert_sorted<KP>(best, key);
         }
@@ -210,8 +253,14 @@ knn_small_k_kernel(const float* __restrict__ q, const float* __restrict__ r,
         slot = 1;
     }
 #pragma unroll
-    for (int s = 0; s < KP; ++s)
-        if (slot + s < k) write_slot(out_d2, out_idx, o + slot + s, best[s]);
+    for (int s = 0; s < KP; ++s) {
+        unsigned long long key = best[s];
+        // a sentinel row won the slot: fewer valid candidates than k
+        if ((Cuts & kCutBound) && key != kEmpty &&
+            __uint_as_float(static_cast<unsigned>(key >> 32)) > 1e30f)
+            key = kEmpty;
+        if (slot + s < k) write_slot(out_d2, out_idx, o + slot + s, key);
+    }
 }
 
 // ---------------------------------------------------------------------------
@@ -222,16 +271,17 @@ knn_small_k_kernel(const float* __restrict__ q, const float* __restrict__ r,
 // of up to k keys in dynamic shared memory, laid out [slot][lane] so a
 // warp's accesses fall in distinct banks.  No candidate is ever lost.  A
 // final merge pops the warp-wide minimum of the list heads k times with
-// __shfl_xor_sync.
+// __shfl_xor_sync.  Key ranks the candidates.
 // ---------------------------------------------------------------------------
 
-template <class L>
+template <class L, class Key = ExactKey>
 __global__ void knn_large_k_kernel(const float* __restrict__ q,
                                    const float* __restrict__ r, Members m,
                                    int k, int self_mode,
                                    float* __restrict__ out_d2,
                                    int* __restrict__ out_idx) {
     constexpr int W = L::kWidth;
+    const Key key_of{};
     extern __shared__ unsigned long long lists[];
     const int lane = threadIdx.x & 31;
     const int warp = threadIdx.x >> 5;
@@ -260,7 +310,7 @@ __global__ void knn_large_k_kernel(const float* __restrict__ q,
     if (keep > 0) {
         unsigned long long worst = kEmpty;
         for (int j = lane; j < nr; j += 32) {
-            const unsigned long long key = make_key(L::row_dist(qv, r, j), j);
+            const unsigned long long key = key_of(L::row_dist(qv, r, j), j);
             if (key < worst && j != self_row)
                 worst = insert_lane_list(list, keep, lane, key);
         }
@@ -278,17 +328,17 @@ __global__ void knn_large_k_kernel(const float* __restrict__ q,
     merge_lane_lists(list, keep, lane, out_d2, out_idx, o, slot);
 }
 
-template <class L, int KP>
+template <class L, int KP, class Key, int Cuts>
 cudaError_t launch_small(const float* q, const float* r, int batch,
                          const Members& m, int k, int self_mode,
                          float* out_d2, int* out_idx, cudaStream_t stream) {
     const dim3 grid((m.q_rows + kSmallThreads - 1) / kSmallThreads, batch);
-    knn_small_k_kernel<L, KP><<<grid, kSmallThreads, 0, stream>>>(
+    knn_small_k_kernel<L, KP, Key, Cuts><<<grid, kSmallThreads, 0, stream>>>(
         q, r, m, k, self_mode, out_d2, out_idx);
     return cudaGetLastError();
 }
 
-template <class L>
+template <class L, class Key = ExactKey, int Cuts = 0>
 cudaError_t dispatch_small_k(const float* q, const float* r, int batch,
                              const Members& m, int k, int self_mode,
                              float* out_d2, int* out_idx,
@@ -296,19 +346,19 @@ cudaError_t dispatch_small_k(const float* q, const float* r, int batch,
     // keys kept per thread: k, less the self slot, rounded up to 2^m
     const int keep = self_mode ? k - 1 : k;
     if (keep <= 1)
-        return launch_small<L, 1>(q, r, batch, m, k, self_mode, out_d2, out_idx, stream);
+        return launch_small<L, 1, Key, Cuts>(q, r, batch, m, k, self_mode, out_d2, out_idx, stream);
     if (keep <= 2)
-        return launch_small<L, 2>(q, r, batch, m, k, self_mode, out_d2, out_idx, stream);
+        return launch_small<L, 2, Key, Cuts>(q, r, batch, m, k, self_mode, out_d2, out_idx, stream);
     if (keep <= 4)
-        return launch_small<L, 4>(q, r, batch, m, k, self_mode, out_d2, out_idx, stream);
+        return launch_small<L, 4, Key, Cuts>(q, r, batch, m, k, self_mode, out_d2, out_idx, stream);
     if (keep <= 8)
-        return launch_small<L, 8>(q, r, batch, m, k, self_mode, out_d2, out_idx, stream);
+        return launch_small<L, 8, Key, Cuts>(q, r, batch, m, k, self_mode, out_d2, out_idx, stream);
     if (keep <= 16)
-        return launch_small<L, 16>(q, r, batch, m, k, self_mode, out_d2, out_idx, stream);
+        return launch_small<L, 16, Key, Cuts>(q, r, batch, m, k, self_mode, out_d2, out_idx, stream);
     return cudaErrorInvalidValue;
 }
 
-template <class L>
+template <class L, class Key = ExactKey>
 cudaError_t dispatch_large_k(const float* q, const float* r, int batch,
                              const Members& m, int k, int self_mode,
                              float* out_d2, int* out_idx,
@@ -320,10 +370,10 @@ cudaError_t dispatch_large_k(const float* q, const float* r, int batch,
     warps = warps < 1 ? 1 : (warps > kLargeMaxWarps ? kLargeMaxWarps : warps);
     const int smem = warps * per_warp;
     cudaError_t err = cudaFuncSetAttribute(
-        knn_large_k_kernel<L>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+        knn_large_k_kernel<L, Key>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
     if (err != cudaSuccess) return err;
     const dim3 grid((m.q_rows + warps - 1) / warps, batch);
-    knn_large_k_kernel<L><<<grid, warps * 32, smem, stream>>>(
+    knn_large_k_kernel<L, Key><<<grid, warps * 32, smem, stream>>>(
         q, r, m, k, self_mode, out_d2, out_idx);
     return cudaGetLastError();
 }

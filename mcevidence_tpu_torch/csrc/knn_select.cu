@@ -4,11 +4,14 @@
 //
 // knn_select_small_k (the small-k body): counterpart of the TPU kernels K1,
 // mcevidence_tpu/ops/knn_pallas.py:_knn_kernel_packedn (n_tiles=2, reached
-// through knn_select_pallas_packed2), and K5, :_knn_kernel_packed2_batched
-// (the same selection with a batch grid axis), used for k_sel < 14.  It is
-// also K4's counterpart below k = 14, :_knn_kernel (exact f32 top-k through
-// knn_select_pallas), whose returned d2 the fast precision consumes.  Exact,
-// so it meets K1's and K5's <= 2^-11 quantisation bound with room to spare.
+// through knn_select_pallas_packed2), behind the k-dependent dispatch, and
+// K5, :_knn_kernel_packed2_batched (the same selection with a batch grid
+// axis), used for k_sel < 14.  It is also K4's counterpart below k = 14,
+// :_knn_kernel (exact f32 top-k through knn_select_pallas), whose returned
+// d2 the fast precision consumes.  Exact, so it meets K1's and K5's
+// <= 2^-11 quantisation bound with room to spare.  The forced
+// `pallas_packed2` engine takes K1's own truncated ranking instead
+// (knn_packed.cu).
 //
 // knn_select_large_k (the large-k body): counterpart of the TPU kernels K2,
 // :_knn_kernel_binned_packed, and K3, :_knn_kernel_binned (both reached
@@ -20,97 +23,21 @@
 // depth k: no candidate is lost, so it meets K2's <= 5e-7 loss bound and
 // K3's exact contract, with no 262,144-row cap.
 //
-// The small-k body reads the shared tile as float4 rows; the large-k body
-// reads float4 rows through L1 from L2.  Tensor-core distance tiles, a TMA
-// ring and a warp-shared insertion threshold are later work.
+// The layout is knn_padded.cuh's: the small-k body reads the shared tile as
+// float4 rows; the large-k body reads float4 rows through L1 from L2.
+// Tensor-core distance tiles, a TMA ring and a warp-shared insertion
+// threshold are later work.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 #include "knn_common.cuh"
+#include "knn_padded.cuh"
 
 namespace {
 
-using knn::Dispatch;
-using knn::dispatch_large_k;
-using knn::dispatch_small_k;
-using knn::kTile;
-
-template <int DP>
-__device__ __forceinline__ float sq_dist(const float (&qv)[DP],
-                                         const float4* row) {
-    float acc = 0.0f;
-#pragma unroll
-    for (int c4 = 0; c4 < DP / 4; ++c4) {
-        const float4 v = row[c4];
-        float t = qv[4 * c4 + 0] - v.x;
-        acc = fmaf(t, t, acc);
-        t = qv[4 * c4 + 1] - v.y;
-        acc = fmaf(t, t, acc);
-        t = qv[4 * c4 + 2] - v.z;
-        acc = fmaf(t, t, acc);
-        t = qv[4 * c4 + 3] - v.w;
-        acc = fmaf(t, t, acc);
-    }
-    return acc;
-}
-
-// [rows, DP] f32 rows; the small-k tile holds kTile rows as float4s.
-template <int DP>
-struct Padded {
-    static_assert(DP % 4 == 0, "DP is a multiple of 4");
-    static constexpr int kWidth = DP;
-    static constexpr int kTileFloats = kTile * DP;
-
-    static __device__ __forceinline__ void load_query(float (&qv)[DP],
-                                                      const float* q,
-                                                      long long row) {
-        const float4* q4 = reinterpret_cast<const float4*>(q) + row * (DP / 4);
-#pragma unroll
-        for (int c4 = 0; c4 < DP / 4; ++c4) {
-            const float4 v = __ldg(q4 + c4);
-            qv[4 * c4 + 0] = v.x;
-            qv[4 * c4 + 1] = v.y;
-            qv[4 * c4 + 2] = v.z;
-            qv[4 * c4 + 3] = v.w;
-        }
-    }
-
-    static __device__ __forceinline__ void stage(float* tile, const float* r,
-                                                 int base, int rows) {
-        float4* t4 = reinterpret_cast<float4*>(tile);
-        const float4* r4 =
-            reinterpret_cast<const float4*>(r) + (long long)base * (DP / 4);
-        for (int t = threadIdx.x; t < rows * (DP / 4); t += blockDim.x)
-            t4[t] = r4[t];
-    }
-
-    static __device__ __forceinline__ float tile_dist(const float (&qv)[DP],
-                                                      const float* tile,
-                                                      int jj) {
-        return sq_dist<DP>(
-            qv, reinterpret_cast<const float4*>(tile) + jj * (DP / 4));
-    }
-
-    static __device__ __forceinline__ float row_dist(const float (&qv)[DP],
-                                                     const float* r,
-                                                     long long j) {
-        const float4* r4 = reinterpret_cast<const float4*>(r) + j * (DP / 4);
-        float4 rowv[DP / 4];
-#pragma unroll
-        for (int c4 = 0; c4 < DP / 4; ++c4) rowv[c4] = __ldg(r4 + c4);
-        return sq_dist<DP>(qv, rowv);
-    }
-};
-
-Dispatch padded_body(int dp, bool large) {
-    switch (dp) {
-        case 8: return large ? dispatch_large_k<Padded<8>> : dispatch_small_k<Padded<8>>;
-        case 16: return large ? dispatch_large_k<Padded<16>> : dispatch_small_k<Padded<16>>;
-        case 32: return large ? dispatch_large_k<Padded<32>> : dispatch_small_k<Padded<32>>;
-        case 64: return large ? dispatch_large_k<Padded<64>> : dispatch_small_k<Padded<64>>;
-        default: return nullptr;
-    }
+knn::Dispatch padded_body(int dp, bool large) {
+    return large ? knn::padded_large_k<>(dp) : knn::padded_small_k<>(dp);
 }
 
 }  // namespace

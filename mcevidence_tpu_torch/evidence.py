@@ -164,7 +164,10 @@ class MCEvidence:
     :param engine: kNN selection engine: 'auto', 'cuda' (alias 'pallas')
         and 'pallas_exact' (the exact k-dependent kernel dispatch),
         'pallas_smalld' (the small-d kernel for refine consumers at
-        d <= 16) or 'torch' (alias 'xla': the plain PyTorch selection).
+        d <= 16), 'pallas_packed' and 'pallas_packed2' (the truncated-key
+        kernels of K6/K7 and K1), 'pallas_binned' (the large-k kernel at any
+        k) or 'torch' (alias 'xla': the plain PyTorch selection); see
+        ``ops.knn`` for the kernel each takes on each path.
     :param device: where the kNN selection runs, 'cuda' (default) or 'cpu'.
     """
 

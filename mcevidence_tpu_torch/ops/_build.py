@@ -39,6 +39,10 @@ LINK_FLAGS = ["-shared"]
 # out_d2, out_idx, stream, device
 ENTRY_POINTS = ("knn_select_small_k", "knn_select_large_k",
                 "knn_select_smalld_small_k", "knn_select_smalld_large_k")
+# C entry points that take one more int after ``device``: ``low_bits`` of
+# the packed selections, the ``cuts`` of the prologue study
+ENTRY_POINTS_EXTRA = ("knn_select_packed_small_k",
+                      "knn_select_packed_large_k", "knn_select_prologue")
 
 _lock = threading.Lock()
 _lib = None
@@ -132,11 +136,14 @@ def build() -> str:
 
 def _declare(lib):
     ptr, i32 = ctypes.c_void_p, ctypes.c_int
-    for name in ENTRY_POINTS:
-        fn = getattr(lib, name)
-        fn.argtypes = [ptr, ptr, i32, i32, i32, ptr, ptr, i32, i32, i32, i32,
-                       ptr, ptr, ptr, i32]
-        fn.restype = i32
+    args = [ptr, ptr, i32, i32, i32, ptr, ptr, i32, i32, i32, i32, ptr, ptr,
+            ptr, i32]
+    for names, argtypes in ((ENTRY_POINTS, args),
+                            (ENTRY_POINTS_EXTRA, args + [i32])):
+        for name in names:
+            fn = getattr(lib, name)
+            fn.argtypes = argtypes
+            fn.restype = i32
     lib.knn_error_string.argtypes = [i32]
     lib.knn_error_string.restype = ctypes.c_char_p
     return lib

@@ -12,7 +12,8 @@ The counterpart of ``mcevidence_tpu/ops/knn.py``:
 * ``refine=False`` (the ``fast`` precision): k candidates are selected by
   the exact dispatch and the square roots of their f32 d2 come back as f64.
 
-Engines (``engine=``):
+Engines (``engine=``), each mapped onto the kernels the JAX package runs
+on each path (``selector``):
 
 * ``"auto"``, ``"cuda"`` (alias ``"pallas"``) and ``"pallas_exact"``: the
   exact k-dependent kernel dispatch, small-k kernel below 14 candidates and
@@ -22,7 +23,19 @@ Engines (``engine=``):
 * ``"pallas_smalld"``: the small-d kernel (K8/K9's counterpart) where the
   JAX package runs it, refine consumers with d <= 16; wider inputs take the
   exact dispatch, and so does ``refine=False``.
+* ``"pallas_packed"``: K6's counterpart (``knn_select_packed``, 11 low
+  bits), K7's (its batched form) on the batched device paths.
+* ``"pallas_packed2"``: K1's counterpart as a forced engine
+  (``knn_select_packed``, 12 low bits) at any k; the exact batched kernel
+  (K5) on the batched device paths.
+* ``"pallas_binned"``: the large-k kernel at any k (K2/K3's exact
+  counterpart) on the host paths, K1's on the one-chain device path.
 * ``"torch"`` (alias ``"xla"``): the plain PyTorch selection.
+
+The packed engines' truncated d2 reach ``refine=False`` (the ``fast``
+precision), as the JAX package's do.  The grid's fast program takes the
+exact batched selection under every engine but ``torch``: the JAX package
+passes it no engine.
 
 Auto-evidence ("self mode", ``ref=None``) keeps the reference's semantics:
 the query point itself is neighbour 0 at distance exactly 0.
@@ -30,6 +43,7 @@ the query point itself is neighbour 0 at distance exactly 0.
 
 from __future__ import annotations
 
+import functools
 import logging
 import math
 import os
@@ -40,6 +54,7 @@ import torch
 
 from ..utils.device import resolve_device
 from .knn_hopper import (SMALLD_MAX, knn_select_batched, knn_select_cuda,
+                         knn_select_large_k, knn_select_packed,
                          knn_select_smalld, knn_select_torch,
                          knn_select_torch_batched)
 
@@ -72,50 +87,73 @@ def bucket_size_pow2(n: int, quantum: int = BUCKET_QUANTUM) -> int:
     return b
 
 
-# forced single-kernel engines of the JAX package and the ROADMAP kernel
-# each one waits for
-_PENDING_ENGINES = {
-    "pallas_packed": "K6 (_knn_kernel_packed)",
-    "pallas_packed2": "K1 as a forced engine (K1 runs only behind the "
-                      "k-dependent 'cuda' dispatch)",
-    "pallas_binned": "K2/K3 as a forced engine (they run only behind the "
-                     "k-dependent 'cuda' dispatch)",
-}
-ENGINES = (("auto", "cuda", "pallas", "pallas_exact", "pallas_smalld",
-            "torch", "xla") + tuple(_PENDING_ENGINES))
+ENGINES = ("auto", "cuda", "pallas", "pallas_exact", "pallas_packed",
+           "pallas_packed2", "pallas_binned", "pallas_smalld", "torch", "xla")
+_KINDS = {"auto": "cuda", "cuda": "cuda", "pallas": "cuda",
+          "pallas_exact": "cuda", "pallas_smalld": "smalld",
+          "pallas_packed": "packed", "pallas_packed2": "packed2",
+          "pallas_binned": "binned", "torch": "torch", "xla": "torch"}
+
+ENGINE_HELP = ("kNN selection engine: 'auto', 'cuda' (alias 'pallas') and "
+               "'pallas_exact' run the exact k-dependent CUDA kernel "
+               "dispatch (the plain PyTorch selection on --device cpu); "
+               "'pallas_smalld' the small-d kernel where candidates are "
+               "refined (d <= 16); 'pallas_packed' (11 low bits) and "
+               "'pallas_packed2' (12) the truncated-key kernels, whose d2 "
+               "the fast precision consumes; 'pallas_binned' the large-k "
+               "kernel at any k; 'torch' (alias 'xla') the plain PyTorch "
+               "selection")
+
+# The paths that select, with the JAX package's dispatch each follows:
+#   refine     exact_knn, refine=True, and the refine guard's reselect
+#              (mcevidence_tpu/ops/knn.py:316-356)
+#   fast       exact_knn(refine=False) and the fused fast program
+#              (knn.py:316-356, pipeline.py:55-67)
+#   device     device precision, one chain (pipeline.py:332-357)
+#   batched    device precision, a batch of chains, and the grid's refine
+#              batches (pipeline.py:271-291, parallel/ring.py:1050-1071)
+#   grid_fast  the grid's fast program (planck.py:468: no engine)
+PATHS = ("refine", "fast", "device", "batched", "grid_fast")
 
 
 def resolve_engine(engine: str) -> str:
-    """Map an engine name onto ``"cuda"`` (the exact dispatch),
-    ``"smalld"`` or ``"torch"``; raises for names whose kernel is not
-    ported yet and for unknown names."""
-    if engine in ("auto", "cuda", "pallas", "pallas_exact"):
-        return "cuda"
-    if engine == "pallas_smalld":
-        return "smalld"
-    if engine in ("torch", "xla"):
-        return "torch"
-    if engine in _PENDING_ENGINES:
-        raise ValueError(
-            f"engine {engine!r} is not ported yet: it waits for the TPU "
-            f"kernel {_PENDING_ENGINES[engine]} (ROADMAP.md, Queue 2); use "
-            "'auto', 'cuda', 'pallas_exact', 'pallas_smalld' or 'torch'")
-    raise ValueError(f"unknown engine {engine!r}; expected one of {ENGINES}")
+    """Map an engine name onto its kind: ``"cuda"`` (the exact dispatch),
+    ``"smalld"``, ``"packed"``, ``"packed2"``, ``"binned"`` or
+    ``"torch"``; raises for unknown names."""
+    if engine not in _KINDS:
+        raise ValueError(f"unknown engine {engine!r}; expected one of "
+                         f"{ENGINES}")
+    return _KINDS[engine]
 
 
-def selector(engine: str, batched: bool = False, *, width: int,
-             refine: bool = True):
-    """The selection an engine runs on rows ``width`` coordinates wide: the
-    plain version for ``"torch"``; the small-d kernel for ``"smalld"`` when
-    a refine stage consumes the candidates (``refine``) and ``width`` <=
-    ``SMALLD_MAX``, as the JAX package dispatches it; the exact kernel
-    dispatch otherwise.  ``batched`` picks the (B, N, d) forms."""
+def _packed(low_bits: int):
+    return functools.partial(knn_select_packed, low_bits=low_bits)
+
+
+def selector(engine: str, path: str, *, width: int):
+    """The selection ``engine`` runs on ``path`` (one of ``PATHS``) for rows
+    ``width`` coordinates wide; the batched paths get the (B, N, d) forms.
+    Every callable takes (query, ref, k, *, self_mode, nr[, nq])."""
+    if path not in PATHS:
+        raise ValueError(f"unknown path {path!r}; expected one of {PATHS}")
     kind = resolve_engine(engine)
+    batched = path in ("batched", "grid_fast")
     if kind == "torch":
         return knn_select_torch_batched if batched else knn_select_torch
-    if kind == "smalld" and refine and width <= SMALLD_MAX:
-        return knn_select_smalld
-    return knn_select_batched if batched else knn_select_cuda
+    exact = knn_select_batched if batched else knn_select_cuda
+    if path == "grid_fast":
+        return exact
+    if kind == "smalld":
+        return (knn_select_smalld if path != "fast" and width <= SMALLD_MAX
+                else exact)
+    if kind == "packed":
+        return _packed(11)
+    if kind == "packed2":
+        return exact if batched else _packed(12)
+    if kind == "binned":
+        return {"refine": knn_select_large_k, "fast": knn_select_large_k,
+                "device": _packed(12)}.get(path, exact)
+    return exact
 
 
 def center_f64(query64: np.ndarray,
@@ -228,7 +266,7 @@ def exact_knn(query: np.ndarray, ref: Optional[np.ndarray], k: int,
       k:     number of distance columns to return.
       refine: recompute the candidates' distances in f64 on the host (the
         parity pipeline); False returns the selection's f32 distances (the
-        ``fast`` precision).
+        ``fast`` precision; truncated under the packed engines).
       pad_candidates: extra f32-selected candidates per row when refining;
         guards against f32 rounding flipping the selection boundary.
       engine: see the module docstring.
@@ -239,7 +277,8 @@ def exact_knn(query: np.ndarray, ref: Optional[np.ndarray], k: int,
     """
     self_mode = ref is None
     ref64 = query if self_mode else ref
-    sel = selector(engine, width=query.shape[1], refine=refine)
+    sel = selector(engine, "refine" if refine else "fast",
+                   width=query.shape[1])
     dev = resolve_device(device)
     nq, nr = query.shape[0], ref64.shape[0]
     k = min(k, nr)

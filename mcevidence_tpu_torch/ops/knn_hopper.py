@@ -24,14 +24,20 @@ loops it over the members.  ``knn_select_small_k``, ``knn_select_large_k``
 and ``knn_select_batched`` wrap the hand-written kernels of
 ``csrc/knn_select.cu``; ``knn_select_smalld`` (the counterpart of K8 and K9,
 the ``pallas_smalld`` engine) wraps those of ``csrc/knn_smalld.cu``, which
-sweep only the d <= 16 true coordinates of an unpadded layout.  A wrapper
-given CPU tensors returns the plain version; given CUDA tensors it launches
-its kernel or raises.  Each wrapper counts its launches in
-``<wrapper>.launches``.
+sweep only the d <= 16 true coordinates of an unpadded layout;
+``knn_select_packed`` (K6/K7, and K1 as a forced engine) and
+``knn_select_prologue`` (the prologue study S1) wrap those of
+``csrc/knn_packed.cu``.  A wrapper given CPU tensors returns the plain
+version; given CUDA tensors it launches its kernel or raises.  Each wrapper
+counts its launches in ``<wrapper>.launches``.
 
-Every kernel returns exact f32 sums of squared differences as its d2, so
-the exact dispatch (``knn_select_cuda``) is also the counterpart of K4, the
-exact kernel whose d2 the ``fast`` precision consumes directly.
+The exact kernels return exact f32 sums of squared differences as their d2,
+so the exact dispatch (``knn_select_cuda``) is also the counterpart of K4,
+the exact kernel whose d2 the ``fast`` precision consumes directly.  The
+packed selections rank by d2 with its low ``low_bits`` mantissa bits
+cleared (ties by the smaller index) and return that truncated d2, as the
+TPU's packed kernels do; the plain version does the same with
+``low_bits > 0``.
 """
 
 from __future__ import annotations
@@ -48,6 +54,11 @@ LARGE_K_MAX = 256
 # first pass / retry switch of the k-dependent dispatch
 # (mcevidence_tpu/ops/knn.py:330: the packed2 kernel below 14, binned above)
 LARGE_K_FROM = 14
+# mantissa bits the packed selections clear: 11 for K6/K7
+# (knn_pallas.py:LOW_BITS), 12 for K1 (two 2048-wide tiles a step)
+PACKED_LOW_BITS = (11, 12)
+# the prologue study's sentinel reference row (scripts/bench_prologue.py:39)
+SENTINEL = 1e18
 
 # bytes one plain-version working buffer may take
 _PLAIN_BLOCK_BYTES = 1 << 28
@@ -67,19 +78,36 @@ def _masked_mean(ref: torch.Tensor, nr: int) -> torch.Tensor:
     return ref[:nr].sum(dim=0) / max(nr, 1)
 
 
+def _truncated_keys(d2: torch.Tensor, low_bits: int) -> torch.Tensor:
+    """int64 keys (bits(d2) with the low ``low_bits`` cleared) << 32 | j of
+    a (rows, Nr) f32 tile of d2 >= 0: the packed kernels' total order, ties
+    by the smaller index."""
+    bits = d2.contiguous().view(torch.int32) & ~((1 << low_bits) - 1)
+    cols = torch.arange(d2.shape[1], device=d2.device)
+    return (bits.to(torch.int64) << 32) | cols
+
+
 def knn_select_torch(query: torch.Tensor, ref: torch.Tensor, k: int, *,
-                     self_mode: bool = False, nr: Optional[int] = None
+                     self_mode: bool = False, nr: Optional[int] = None,
+                     low_bits: int = 0
                      ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Exact kNN selection in plain PyTorch, in the inputs' dtype.
+    """kNN selection in plain PyTorch, in the inputs' dtype.
 
     Distances are sums of squared differences (no matrix-product identity,
     so duplicates sit at exactly 0), taken over (query chunk, ref block)
-    tiles of at most ``_PLAIN_BLOCK_BYTES``; ``torch.topk`` selects.
+    tiles of at most ``_PLAIN_BLOCK_BYTES``; ``torch.topk`` selects.  With
+    ``low_bits`` = 0 the selection is exact.  With ``low_bits`` > 0 (f32
+    only: the packed selections) it ranks by the int64 key of
+    ``_truncated_keys`` and returns the truncated d2: ``topk`` on the
+    truncated floats alone would break their many ties in no fixed order.
     """
     nq, d = query.shape
     nr = _valid_count(ref, nr)
     k = min(k, ref.shape[0])
     dtype, dev = query.dtype, query.device
+    if low_bits and dtype != torch.float32:
+        raise ValueError(f"low_bits={low_bits} truncates f32 keys, got "
+                         f"{dtype}")
     d2_out = torch.full((nq, k), float("inf"), dtype=dtype, device=dev)
     idx_out = torch.full((nq, k), -1, dtype=torch.int32, device=dev)
     if nq == 0 or k == 0:
@@ -95,7 +123,7 @@ def knn_select_torch(query: torch.Tensor, ref: torch.Tensor, k: int, *,
     keep = min(k - first, nr)
     if keep <= 0:
         return d2_out, idx_out
-    elem = q.element_size()
+    elem = max(q.element_size(), 8 if low_bits else 0)
     rows = max(1, min(nq, _PLAIN_BLOCK_BYTES // (max(nr, 1) * elem)))
     cols = max(1, min(nr, _PLAIN_BLOCK_BYTES // (rows * max(d, 1) * elem)))
     for lo in range(0, nq, rows):
@@ -107,7 +135,14 @@ def knn_select_torch(query: torch.Tensor, ref: torch.Tensor, k: int, *,
             own = torch.arange(lo, hi, device=dev)
             inside = own < nr
             d2[inside.nonzero().squeeze(1), own[inside]] = float("inf")
-        vals, pos = torch.topk(d2, keep, dim=1, largest=False, sorted=True)
+        if low_bits:
+            keys, _ = torch.topk(_truncated_keys(d2, low_bits), keep,
+                                 dim=1, largest=False, sorted=True)
+            vals = (keys >> 32).to(torch.int32).view(torch.float32)
+            pos = keys & 0xFFFFFFFF
+        else:
+            vals, pos = torch.topk(d2, keep, dim=1, largest=False,
+                                   sorted=True)
         pos = torch.where(torch.isinf(vals), -1, pos)
         d2_out[lo:hi, first:first + keep] = vals
         idx_out[lo:hi, first:first + keep] = pos.to(torch.int32)
@@ -131,11 +166,12 @@ def _member_counts(counts: Counts, batch: int, alloc: int,
 
 def knn_select_torch_batched(query: torch.Tensor, ref: torch.Tensor, k: int,
                              *, self_mode: bool = False, nr: Counts = None,
-                             nq: Counts = None
+                             nq: Counts = None, low_bits: int = 0
                              ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """The batched selection in plain PyTorch: ``knn_select_torch`` on each
-    member's first ``nq[b]`` query rows against its first ``nr[b]``
-    reference rows.  Returns (B, Nq, k) d2 and idx, k clipped to Nr."""
+    """The batched selection in plain PyTorch: ``knn_select_torch`` (with
+    ``low_bits``) on each member's first ``nq[b]`` query rows against its
+    first ``nr[b]`` reference rows.  Returns (B, Nq, k) d2 and idx, k
+    clipped to Nr."""
     _check_batched(query, ref, self_mode)
     bsz, nq_alloc, _ = query.shape
     nr_b = _member_counts(nr, bsz, ref.shape[1], "nr")
@@ -147,7 +183,8 @@ def knn_select_torch_batched(query: torch.Tensor, ref: torch.Tensor, k: int,
                      device=query.device)
     for b in range(bsz):
         d2[b, :nq_b[b]], idx[b, :nq_b[b]] = knn_select_torch(
-            query[b, :nq_b[b]], ref[b], k, self_mode=self_mode, nr=nr_b[b])
+            query[b, :nq_b[b]], ref[b], k, self_mode=self_mode, nr=nr_b[b],
+            low_bits=low_bits)
     return d2, idx
 
 
@@ -183,23 +220,25 @@ def _padded_width(d: int) -> int:
 
 
 def _call(entry: str, q, r, d2, idx, *, batch, q_rows, r_rows, nq_dev,
-          nr_dev, nr_all, dp, k, self_mode) -> None:
+          nr_dev, nr_all, dp, k, self_mode, extra=None) -> None:
     """Call one C entry point of ``csrc/`` on the current stream (``dp``:
-    the rows' width as laid out, padded or not); raises on a non-zero
-    cudaError_t."""
+    the rows' width as laid out, padded or not; ``extra``: the last int of
+    an ``ENTRY_POINTS_EXTRA`` entry); raises on a non-zero cudaError_t."""
     from . import _build
     dev = q.device
     lib = _build.load()
-    code = getattr(lib, entry)(
-        q.data_ptr(), r.data_ptr(), batch, q_rows, r_rows,
-        None if nq_dev is None else nq_dev.data_ptr(),
-        None if nr_dev is None else nr_dev.data_ptr(), nr_all, dp, k,
-        int(self_mode), d2.data_ptr(), idx.data_ptr(),
-        torch.cuda.current_stream(dev).cuda_stream, dev.index or 0)
+    args = [q.data_ptr(), r.data_ptr(), batch, q_rows, r_rows,
+            None if nq_dev is None else nq_dev.data_ptr(),
+            None if nr_dev is None else nr_dev.data_ptr(), nr_all, dp, k,
+            int(self_mode), d2.data_ptr(), idx.data_ptr(),
+            torch.cuda.current_stream(dev).cuda_stream, dev.index or 0]
+    if extra is not None:
+        args.append(int(extra))
+    code = getattr(lib, entry)(*args)
     _build.check(lib, code, entry)
 
 
-def _launch(entry: str, query, ref, k, self_mode, nr, dp=None):
+def _launch(entry: str, query, ref, k, self_mode, nr, dp=None, extra=None):
     """Centre (masked mean, f32), pad d to the kernel width ``dp`` (default
     the next of 8/16/32/64), allocate the outputs and launch the kernel as a
     batch of one member."""
@@ -223,7 +262,8 @@ def _launch(entry: str, query, ref, k, self_mode, nr, dp=None):
     if nq == 0 or k == 0:
         return d2, idx, False
     _call(entry, q, r, d2, idx, batch=1, q_rows=nq, r_rows=nr, nq_dev=None,
-          nr_dev=None, nr_all=nr, dp=dp, k=k, self_mode=self_mode)
+          nr_dev=None, nr_all=nr, dp=dp, k=k, self_mode=self_mode,
+          extra=extra)
     return d2, idx, True
 
 
@@ -265,7 +305,7 @@ def knn_select_large_k(query: torch.Tensor, ref: torch.Tensor, k: int, *,
 
 
 def _launch_batched(small_entry: str, large_entry: str, query, ref, k,
-                    self_mode, nr, nq, dp):
+                    self_mode, nr, nq, dp, extra=None):
     """Centre each member on its masked mean (f32), pad d to ``dp``, and
     launch the small-k body below ``LARGE_K_FROM`` candidates and the
     large-k body from there, once over the whole batch, with the per-member
@@ -301,7 +341,7 @@ def _launch_batched(small_entry: str, large_entry: str, query, ref, k,
     entry = large_entry if k >= LARGE_K_FROM else small_entry
     _call(entry, q, r, d2, idx, batch=bsz, q_rows=nq_alloc, r_rows=nr_alloc,
           nq_dev=nq_dev, nr_dev=nr_dev, nr_all=nr_alloc, dp=dp, k=k,
-          self_mode=self_mode)
+          self_mode=self_mode, extra=extra)
     return d2, idx, True
 
 
@@ -376,8 +416,126 @@ def knn_select_smalld(query: torch.Tensor, ref: torch.Tensor, k: int, *,
     return d2, idx
 
 
+def knn_select_packed(query: torch.Tensor, ref: torch.Tensor, k: int, *,
+                      low_bits: int = 11, self_mode: bool = False,
+                      nr: Counts = None, nq: Counts = None
+                      ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Packed selection: the counterpart of the TPU kernels K6
+    (``knn_select_pallas_packed``) and K7
+    (``knn_select_pallas_packed_batched``) at ``low_bits`` = 11, and of K1
+    (``knn_select_pallas_packed2``) as a forced engine at ``low_bits`` = 12.
+
+    Takes query (Nq, d) and ref (Nr, d) with a host count ``nr``, or query
+    (B, Nq, d) and ref (B, Nr, d) with per-member counts ``nr`` and ``nq``.
+    Ranks the candidates by d2 with its low ``low_bits`` mantissa bits
+    cleared, ties by the smaller index, and returns that truncated d2 (at
+    most 2^(low_bits - 23) below the exact value), as the TPU kernels do.
+    The small-k body runs below ``LARGE_K_FROM`` candidates and the large-k
+    body from there up to ``LARGE_K_MAX``."""
+    if low_bits not in PACKED_LOW_BITS:
+        raise ValueError(f"low_bits must be one of {PACKED_LOW_BITS}, got "
+                         f"{low_bits}")
+    batched = query.dim() == 3
+    if batched:
+        _check_batched(query, ref, self_mode)
+    else:
+        _check_inputs(query, ref)
+        if nq is not None:
+            raise ValueError("nq is a per-member count of the batched form")
+    if query.device.type == "cpu":
+        if batched:
+            return knn_select_torch_batched(query, ref, k,
+                                            self_mode=self_mode, nr=nr, nq=nq,
+                                            low_bits=low_bits)
+        return knn_select_torch(query, ref, k, self_mode=self_mode, nr=nr,
+                                low_bits=low_bits)
+    if batched:
+        d2, idx, launched = _launch_batched(
+            "knn_select_packed_small_k", "knn_select_packed_large_k", query,
+            ref, k, self_mode, nr, nq, _padded_width(query.shape[2]),
+            extra=low_bits)
+    else:
+        if min(k, ref.shape[0]) > LARGE_K_MAX:
+            raise ValueError(f"knn_select_packed takes k <= {LARGE_K_MAX}, "
+                             f"got k={k}")
+        entry = ("knn_select_packed_large_k" if k >= LARGE_K_FROM
+                 else "knn_select_packed_small_k")
+        d2, idx, launched = _launch(entry, query, ref, k, self_mode, nr,
+                                    extra=low_bits)
+    knn_select_packed.launches += launched
+    return d2, idx
+
+
+# the prologue study's variants and their cuts (csrc/knn_packed.cu)
+PROLOGUE_CUTS = {"B": 1, "BC": 3}
+
+
+def knn_select_prologue_torch(query: torch.Tensor, ref: torch.Tensor,
+                              k: int, *, self_mode: bool = True,
+                              nr: Optional[int] = None
+                              ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The prologue study's function in plain PyTorch: K1's packed
+    selection at 12 low bits, with slots whose d2 > 1e30 absent (a sentinel
+    row's, scripts/bench_prologue.py:152-154)."""
+    d2, idx = knn_select_torch(query, ref, k, self_mode=self_mode, nr=nr,
+                               low_bits=12)
+    far = d2 > 1e30
+    return d2.masked_fill(far, float("inf")), idx.masked_fill(far, -1)
+
+
+def knn_select_prologue(query: torch.Tensor, ref: torch.Tensor, k: int, *,
+                        variant: str = "B", self_mode: bool = True,
+                        nr: Optional[int] = None
+                        ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The prologue study S1 (``scripts/bench_prologue.py:_kernel``): K1's
+    function (12 low bits, small-k body, k - self_mode <= ``SMALL_K_MAX``)
+    with the prologue cut.  ``variant`` "B": the reference allocation is
+    padded to a multiple of 128 rows with sentinel rows (``SENTINEL`` in
+    every column) in place of the per-tile count bound; "BC": also the self
+    test only in the tile that holds the block's own rows.  Cut A (one wide
+    matrix product) has no counterpart: the kernels take distances by
+    differences."""
+    if variant not in PROLOGUE_CUTS:
+        raise ValueError(f"variant must be one of {sorted(PROLOGUE_CUTS)}, "
+                         f"got {variant!r}")
+    _check_inputs(query, ref)
+    if query.device.type == "cpu":
+        return knn_select_prologue_torch(query, ref, k, self_mode=self_mode,
+                                         nr=nr)
+    nq, d = query.shape
+    nr = _valid_count(ref, nr)
+    k = min(k, ref.shape[0])
+    if k - int(self_mode) > SMALL_K_MAX:
+        raise ValueError(f"knn_select_prologue takes k - self_mode <= "
+                         f"{SMALL_K_MAX}, got k={k}")
+    if self_mode and nq > ref.shape[0]:
+        raise ValueError("self mode needs every query row to be a ref row")
+    dp = _padded_width(d)
+    dev = query.device
+    tile = 128                    # kTile of csrc/knn_common.cuh
+    nr_pad = -(-max(nr, 1) // tile) * tile
+    mu = _masked_mean(ref.to(torch.float32), nr)
+    r = torch.full((nr_pad, dp), SENTINEL, dtype=torch.float32, device=dev)
+    r[:nr] = 0.0
+    r[:nr, :d] = ref[:nr].to(torch.float32) - mu
+    if self_mode and ref is query and nq <= nr:
+        q = r[:nq]
+    else:
+        q = torch.zeros((nq, dp), dtype=torch.float32, device=dev)
+        q[:, :d] = query.to(torch.float32) - mu
+    d2 = torch.empty((nq, k), dtype=torch.float32, device=dev)
+    idx = torch.empty((nq, k), dtype=torch.int32, device=dev)
+    if nq == 0 or k == 0:
+        return d2, idx
+    _call("knn_select_prologue", q, r, d2, idx, batch=1, q_rows=nq,
+          r_rows=nr_pad, nq_dev=None, nr_dev=None, nr_all=nr_pad, dp=dp, k=k,
+          self_mode=self_mode, extra=PROLOGUE_CUTS[variant])
+    knn_select_prologue.launches += 1
+    return d2, idx
+
+
 KERNEL_WRAPPERS = (knn_select_small_k, knn_select_large_k, knn_select_batched,
-                   knn_select_smalld)
+                   knn_select_smalld, knn_select_packed, knn_select_prologue)
 for _wrapper in KERNEL_WRAPPERS:
     _wrapper.launches = 0
 

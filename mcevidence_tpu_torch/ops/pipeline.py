@@ -20,8 +20,9 @@ with ``4*pad+8`` candidates.
 
 One ``fast`` estimate (``fast_auto_evidence``, ``fused_auto_evidence``)
 runs all in f32: host f64 centring -> upload -> masked-moment whitening,
-exact kNN selection at k = kmax and the log-space estimator on the card ->
-kmax scalars back (~1e-3 in ln Z of the refine path).  The kernels take
+kNN selection at k = kmax (exact, or truncated under the packed engines, as
+in the JAX package) and the log-space estimator on the card -> kmax scalars
+back (~1e-3 in ln Z of the refine path).  The kernels take
 any row count, so nothing is padded to a row bucket.
 """
 
@@ -58,17 +59,17 @@ def fused_auto_evidence(samples: torch.Tensor, lnlike: torch.Tensor,
     """Auto-evidence in f32 on the tensors' device, without waiting for it.
 
     ``samples`` (N, ndim) f32, centred; ``lnlike`` and ``weights`` (N,)
-    f32.  Whitening from the moments, the exact selection of kmax
-    neighbours (self at column 0) and the estimator on the squared
-    distances.  Returns the (kmax,) MLE row (column 0 unused, quirk Q2);
+    f32.  Whitening from the moments, the ``fast`` path's selection of
+    kmax neighbours under ``engine`` (self at column 0) and the estimator on
+    the squared distances it returns.  Returns the (kmax,) MLE row (column 0 unused, quirk Q2);
     columns k >= N have no k-th neighbour and are NaN, as on the host
     parity path."""
     n, ndim = samples.shape
     valid = torch.ones(n, dtype=samples.dtype, device=samples.device)
     white, log_j, _ = whiten_masked(samples, valid)
     k_sel = min(kmax, n)
-    d2, _ = selector(engine, width=ndim, refine=False)(white, white, k_sel,
-                                                       self_mode=True)
+    d2, _ = selector(engine, "fast", width=ndim)(white, white, k_sel,
+                                                 self_mode=True)
     if k_sel < kmax:
         d2 = torch.cat([d2, d2.new_full((n, kmax - k_sel), math.inf)], 1)
     mle = log_evidence_from_knn(
@@ -206,7 +207,7 @@ def fused_refine_dotp(q64, r64, scal, n_ref_true, ndim, inv_s2, *,
     q32 = q64.to(torch.float32)
     r32 = q32 if self_mode else r64.to(torch.float32)
     # smalld sweeps exactly the ndim true coordinates (JAX's d_real = ndim)
-    _, idx = selector(engine, width=q32.shape[1])(
+    _, idx = selector(engine, "device", width=q32.shape[1])(
         q32, r32, k_sel, self_mode=self_mode, nr=n_ref_true)
     return _refine_dotp_post(q64, r64, scal, idx, ndim=ndim, inv_s2=inv_s2,
                              kmax=kmax, self_mode=self_mode)
@@ -225,7 +226,7 @@ def fused_refine_dotp_batch(q64, r64, scal, nq, nr, ndims, inv_s2s, *,
     r32 = q32 if self_mode else r64.to(torch.float32)
     # smalld sweeps the batch's width, as JAX's batched program sweeps its
     # padded width class
-    _, idx = selector(engine, batched=True, width=q32.shape[2])(
+    _, idx = selector(engine, "batched", width=q32.shape[2])(
         q32, r32, k_sel, self_mode=self_mode, nr=nr, nq=nq)
     return torch.stack([
         _refine_dotp_post(q64[b, :nq[b]], r64[b], scal[b, :nq[b]],

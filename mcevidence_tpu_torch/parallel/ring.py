@@ -8,7 +8,11 @@ here: one card takes a whole batch of chains in one selection launch,
 member's true row counts as runtime values, so neither the batch nor the
 rows are padded to compile buckets, and self mode uses the kernel's own pin.
 The JAX names are kept so that a reader finds the counterparts; the
-multi-GPU ring is ROADMAP.md Queue 1, item 10.
+multi-GPU ring is ROADMAP.md Queue 1, item 10.  The engine picks the batched
+selection as ``ops.knn.selector`` maps it: ``pallas_packed`` takes
+``knn_select_packed`` (K7's counterpart) on the device and refine batches,
+and the fast program takes the exact batched selection under every engine
+but ``torch``, as the JAX package's takes no engine.
 
 * ``sharded_grid_auto_evidence``: ``fast`` precision — the body of
   ``make_sharded_grid_evidence`` at dp = ring = 1 as batched tensors:
@@ -158,7 +162,7 @@ def sharded_grid_auto_evidence(chains, *, kmax: int = 2,
     S, L, W, V = f32(samples), f32(lnl), f32(w), f32(valid)
     white, log_j, _ = whiten_masked(S, V)
     k_sel = min(kmax, n_rows)
-    d2, _ = selector(engine, batched=True, width=ndim, refine=False)(
+    d2, _ = selector(engine, "grid_fast", width=ndim)(
         white, white, k_sel, self_mode=True, nr=ns, nq=ns)
     if k_sel < kmax:
         d2 = torch.cat([d2, d2.new_full((b_true, n_rows, kmax - k_sel),
@@ -312,8 +316,8 @@ def sharded_grid_evidence_refine(chains, *, kmax: int = 2,
     b_true = len(norm)
     ndims = [s.shape[1] for s, _, _ in norm]
     # the stacks below are a width class wide (8 or 16 columns)
-    select_batch = selector(engine, batched=True, width=GRID_DPAD)
-    select = selector(engine, width=GRID_DPAD)
+    select_batch = selector(engine, "batched", width=GRID_DPAD)
+    select = selector(engine, "refine", width=GRID_DPAD)
     ns = [s.shape[0] for s, _, _ in norm]
     if max(ndims) > GRID_DPAD:
         raise ValueError(f"ndim {max(ndims)} > GRID_DPAD {GRID_DPAD}")

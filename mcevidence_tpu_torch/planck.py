@@ -726,7 +726,7 @@ def aggregate(outdir: str, *, basename: str = "mce", nchain: int = 0,
 # ---------------------------------------------------------------------------
 
 def build_parser() -> ArgumentParser:
-    from .ops.knn import ENGINES
+    from .ops.knn import ENGINE_HELP, ENGINES
     p = ArgumentParser(prog="mcevidence-planck",
                        description="Planck full-grid MCEvidence "
                                    "(PyTorch/CUDA)")
@@ -783,12 +783,7 @@ def build_parser() -> ArgumentParser:
     p.add_argument("--seed", default=None, type=int,
                    help="RNG seed for the cross-evidence split")
     p.add_argument("--engine", default="auto", choices=list(ENGINES),
-                   help="kNN selection engine: 'auto', 'cuda' (alias "
-                        "'pallas') and 'pallas_exact' run the exact CUDA "
-                        "kernel dispatch (the plain PyTorch selection on "
-                        "--device cpu); 'pallas_smalld' the small-d kernel "
-                        "where candidates are refined (d <= 16); 'torch' "
-                        "(alias 'xla') the plain PyTorch selection")
+                   help=ENGINE_HELP)
     p.add_argument("--device", default="cuda",
                    help="where the selection (and in device precision the "
                         "refinement and reduction) runs: 'cuda' (default; "

@@ -77,14 +77,6 @@ def test_cli_device_precision_matches_reference(toy_root, capsys, args):
         np.testing.assert_allclose(got[key], want[key], rtol=0, atol=1e-9)
 
 
-@pytest.mark.parametrize("args,message", [
-    (["--json"], "ROADMAP.md Queue 1, item 8"),
-], ids=["json"])
-def test_cli_unported_options_exit_2(toy_root, capsys, args, message):
-    assert port_cli.main([toy_root, "--device", "cpu"] + args) == 2
-    assert message in capsys.readouterr().err
-
-
 @pytest.mark.parametrize("args,atol", [
     (["-k", "3", "--precision", "fast"], 1e-4),
     (["-k", "3", "--engine", "pallas_exact"], 1e-9),
@@ -127,7 +119,14 @@ def test_port_imports_no_jax():
             "except SystemExit:\n"
             "    pass\n"
             "import mcevidence_tpu_torch.interop, mcevidence_tpu_torch.ops\n"
-            "mcevidence_tpu_torch.evidence_fn\n"
+            "from mcevidence_tpu_torch import compare, compat, serve\n"
+            "for main in (serve.main, compare.main):\n"
+            "    try:\n"
+            "        main(['--help'])\n"
+            "    except SystemExit:\n"
+            "        pass\n"
+            "mcevidence_tpu_torch.evidence_fn, mcevidence_tpu_torch.MCSamples\n"
+            "mcevidence_tpu_torch.compare_models\n"
             "print('JAX_LOADED', 'jax' in sys.modules)\n")
     root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
     proc = subprocess.run([sys.executable, "-c", code], cwd=root,

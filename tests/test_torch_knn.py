@@ -269,20 +269,13 @@ def test_cpu_tensors_take_the_plain_version_and_count_nothing():
     assert kh.knn_select_large_k.launches == 0
 
 
-@pytest.mark.parametrize("engine,kernel", [
-    ("pallas_packed", "K6"), ("pallas_packed2", "K1"),
-    ("pallas_binned", "K2/K3")])
-def test_unported_engines_raise_naming_their_kernel(engine, kernel):
-    with pytest.raises(ValueError, match=kernel):
-        resolve_engine(engine)
-    with pytest.raises(ValueError, match="ROADMAP"):
-        exact_knn(np.zeros((10, 2)), None, 2, engine=engine, device="cpu")
-
-
 def test_engine_aliases_and_unknown_names():
     assert [resolve_engine(e) for e in ("auto", "cuda", "pallas",
                                         "pallas_exact")] == ["cuda"] * 4
     assert resolve_engine("pallas_smalld") == "smalld"
+    assert [resolve_engine(e) for e in ("pallas_packed", "pallas_packed2",
+                                        "pallas_binned")] == [
+        "packed", "packed2", "binned"]
     assert [resolve_engine(e) for e in ("torch", "xla")] == ["torch"] * 2
     with pytest.raises(ValueError, match="unknown engine"):
         resolve_engine("tpu")
@@ -291,17 +284,18 @@ def test_engine_aliases_and_unknown_names():
 def test_smalld_dispatch_follows_the_reference():
     """knn.py:335-345: the small-d kernel for refine consumers at d <= 16;
     wider inputs and directly-used distances take the exact dispatch."""
-    assert selector("pallas_smalld", width=16) is kh.knn_select_smalld
-    assert selector("pallas_smalld", batched=True,
+    assert selector("pallas_smalld", "refine",
+                    width=16) is kh.knn_select_smalld
+    assert selector("pallas_smalld", "batched",
                     width=3) is kh.knn_select_smalld
-    assert selector("pallas_smalld", width=17) is kh.knn_select_cuda
-    assert selector("pallas_smalld", batched=True,
+    assert selector("pallas_smalld", "refine",
+                    width=17) is kh.knn_select_cuda
+    assert selector("pallas_smalld", "batched",
                     width=17) is kh.knn_select_batched
-    assert selector("pallas_smalld", width=3,
-                    refine=False) is kh.knn_select_cuda
-    assert selector("pallas_exact", width=3) is kh.knn_select_cuda
-    assert selector("xla", width=3,
-                    refine=False) is kh.knn_select_torch
+    assert selector("pallas_smalld", "fast",
+                    width=3) is kh.knn_select_cuda
+    assert selector("pallas_exact", "refine", width=3) is kh.knn_select_cuda
+    assert selector("xla", "fast", width=3) is kh.knn_select_torch
 
 
 # K4 (knn_select_pallas) takes its d2 by the matrix-product identity in f32,
