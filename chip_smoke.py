@@ -10,7 +10,9 @@ fails before printing any result.
 
 1. probe: torch/CUDA versions, the card, nvcc; TF32 switched off.
 2. build: nvcc builds ``mcevidence_tpu_torch/csrc/*.cu`` for sm_90a, one
-   process per source, all started together; each source's compile time.
+   process per source, all started together; each source's compile time,
+   and the registers and spill bytes of each body on each layout from
+   nvcc's ``--resource-usage`` log.
 3. kernel vs plain: each kernel against its plain version on the same CUDA
    tensors: ``knn_select_small_k`` and ``knn_select_large_k`` against
    ``knn_select_torch``, ``knn_select_batched`` against
@@ -34,7 +36,13 @@ fails before printing any result.
    with the same truncation: the same criterion, the returned d2 within one
    quantum (``PACKED_D2_REL_TOL``, 2^-11: the sums are rounded
    differently, so a d2 near a quantum's edge may fall on its other side),
-   and the truncated bits of every returned d2 zero.
+   and the truncated bits of every returned d2 zero.  The selection
+   bodies' edges (``csrc/knn_common.cuh``): the warp queue's boundaries
+   (k = 31..33, 63..65, 128, 129, 255, 256), every row one point (all d2
+   = 0, so the indices must follow the tie order exactly), nr not a
+   multiple of a tile and under one tile, and blocks that mix real and
+   padded query rows, each in self and cross mode on the ``Padded``,
+   ``Compact`` and batched forms, under the same criterion.
 4. the main paths through the user's entry points, each with the launch
    counts set to 0 just before it and read just after:
    a. refine precision: ``evidence_fn`` auto, cross, a lattice whose ties
@@ -77,7 +85,9 @@ fails before printing any result.
 5. times: each kernel against its plain version at the main paths' shapes
    (the small-d kernel beside the small-k and large-k kernels at d = 3, 6,
    7, 8; the packed selections at k = 9 and 44 beside the exact ones; the
-   prologue study at k = 1 and 5 beside the small-k kernel), each kernel's
+   prologue study at k = 1 and 5 beside the small-k kernel; a sweep of
+   the large-k body at k = 14, 20, 26, 44, 106, 256 and the small-k body at
+   k = 5, 9, 13, at N=65536 and d = 3, 8, 32), each kernel's
    bound (``bound``: the least operations of the TPU
    kernel it replaces at the card's FP32 peak, or its bytes at the memory
    rate), ``evidence_fn`` refine, device and fast wall times (also under
@@ -508,6 +518,51 @@ def bound(kernel, n, d, k, batch=1):
                                     else "bytes")
 
 
+def resource_table(log):
+    """Max registers and spill bytes of each selection body on each layout,
+    from nvcc's ``--resource-usage`` log: "small Padded<8>": {...}."""
+    table, body = {}, None
+    for line in log.splitlines():
+        m = re.search(r"(?:Function properties for|Compiling entry function)"
+                      r"\W*(\w+)", line)
+        if m:
+            name = m.group(1)
+            lay = re.search(r"(Padded|Compact)ILi(\d+)E", name)
+            kind = ("small" if "small_k_kernel" in name else
+                    "large" if "large_k_kernel" in name else None)
+            body = (f"{kind} {lay.group(1)}<{lay.group(2)}>"
+                    if kind and lay else None)
+            continue
+        if body is None:
+            continue
+        ent = table.setdefault(body, {"max_registers": 0, "spill_bytes": 0})
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            ent["max_registers"] = max(ent["max_registers"], int(m.group(1)))
+        m = re.search(r"(\d+) bytes spill stores", line)
+        if m:
+            ent["spill_bytes"] += int(m.group(1))
+    return table
+
+
+def tie_order_broken(kidx, self_mode, nr):
+    """With every row one point, all d2 are 0 and the slots must hold the
+    indices in order: the self row first in self mode, then 0, 1, ... (the
+    self row skipped), absent past nr."""
+    nq, k = kidx.shape
+    rows = torch.arange(nq, device=kidx.device)[:, None]
+    rank = torch.arange(k, device=kidx.device)[None, :]
+    if self_mode:
+        want = rank - 1 + (rank - 1 >= rows).long()
+        want = torch.where(rank == 0, rows, want)
+        valid = rank < min(nr, k)
+    else:
+        want = rank.expand(nq, k)
+        valid = rank < min(nr, k)
+    want = torch.where(valid, want, -1)
+    return not bool((kidx.long() == want).all())
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this script "
@@ -540,6 +595,7 @@ def main():
                                          _build.build_log)]
     phase("build", library=os.path.relpath(lib_path, HERE),
           max_registers=max(regs, default=None), spill_bytes=sum(spills),
+          bodies=resource_table(_build.build_log),
           sources=sorted(os.listdir(_build.CSRC)), seconds=build_s,
           nvcc_seconds=_build.build_seconds,
           nvcc_seconds_per_source=dict(_build.source_seconds),
@@ -770,7 +826,56 @@ def main():
                 f"prologue {variant} {name}", prologue, q, r, k, True, nr,
                 nr is None, low_bits=12,
                 plain=kh.knn_select_prologue_torch))
+    # the selection bodies' edges: 5993 rows is no multiple of a tile (128
+    # small-k rows, 512 or 256 large-k rows) or of a block's query rows (256
+    # small-k, 16 large-k), 100 rows are under one tile; the batched form
+    # adds members whose query counts cut a block, and a member under one
+    # tile
+    def edges(name, k, self_mode, q, r, nr, ties=False):
+        n_q = q.shape[0]
+        wname = "knn_select_small_k" if k < 14 else "knn_select_large_k"
+        forms = [(wname, getattr(kh, wname), q, r), ("knn_select_smalld",
+                                                     smalld, q[:, :5], r[:, :5])]
+        for wname, fn, qq, rr in forms:
+            qq, rr = qq.contiguous(), rr.contiguous()
+            if self_mode:
+                rr = qq
+            errs[wname].append(compare(f"{wname} edge {name}", fn, qq, rr, k,
+                                       self_mode, nr, returned=True))
+            if ties and tie_order_broken(
+                    fn(qq, rr, k, self_mode=self_mode, nr=nr)[1], self_mode,
+                    nr if nr is not None else rr.shape[0]):
+                raise AssertionError(f"{wname} edge {name}: tie order")
+        q3 = torch.stack([q, q.flip(0), q])
+        r3 = q3 if self_mode else torch.stack([r, r.flip(0), r])
+        n_r = r.shape[0] if nr is None else nr
+        nq3 = [n_q, n_q - 7, 3] if self_mode else [n_q, 1001, 3]
+        nr3 = nq3 if self_mode else [n_r, n_r - 13, min(n_r, 100)]
+        errs["knn_select_batched"].append(compare_batched(
+            f"batched edge {name} nq={nq3} nr={nr3}", q3, r3, k, self_mode,
+            nr3, nq3, returned=True))
+        if ties:
+            kidx = kh.knn_select_batched(q3, r3, k, self_mode=self_mode,
+                                         nr=nr3, nq=nq3)[1]
+            for b in range(3):
+                if tie_order_broken(kidx[b, :nq3[b]], self_mode, nr3[b]):
+                    raise AssertionError(f"batched edge {name}: member {b} "
+                                         "tie order")
+
+    xe = cu(rng.normal(size=(5993, 8)))
+    re_ = cu(rng.normal(size=(5993, 8)))
+    one = cu(np.full((5993, 8), 0.5))
+    for self_mode in (True, False):
+        mode = "self" if self_mode else "cross"
+        for k in (31, 32, 33, 63, 64, 65, 128, 129, 255, 256):
+            edges(f"{mode} N=5993 k={k}", k, self_mode, xe, re_, None)
+        for k in (9, 33, 129):
+            edges(f"{mode} one point N=5993 k={k}", k, self_mode, one, one,
+                  None, ties=True)
+            edges(f"{mode} nr=100 under one tile k={k}", k, self_mode,
+                  xe[:100] if self_mode else xe, re_, 100)
     del xd, garbage, qx, rx, q8, r8, qd, qq, rr, qc, xs, qs, g7, d3, qd3, xp
+    del xe, re_, one
     torch.cuda.empty_cache()
 
     total = {n: 0 for n in KERNELS}
@@ -1133,6 +1238,22 @@ def main():
               pairs_per_s=pairs / (ms * 1e-3),
               plain_pairs_per_s=pairs / (plain_ms * 1e-3), gpu=smi)
         times.setdefault(name, (ms, plain_ms, b_ms, b_by))
+    # the bodies' sweep over k and d at N=65536 (the plain version, whose
+    # time hardly moves with k, is timed above)
+    xs[32] = cu(rng.normal(size=(65536, 32)))
+    for d in (3, 8, 32):
+        for name, fn, ks in (("knn_select_small_k", small, (5, 9, 13)),
+                             ("knn_select_large_k", large,
+                              (14, 20, 26, 44, 106, 256))):
+            for k in ks:
+                ms = cuda_ms(lambda: fn(xs[d], xs[d], k, self_mode=True))
+                b_ms, b_by = bound(name, 65536, d, k)
+                phase("time", kernel=name,
+                      shape=f"self N=65536 d={d} k={k} (sweep)", ms=ms,
+                      plain_ms=None, bound_ms=b_ms, bound_by=b_by,
+                      share_of_bound=b_ms / ms,
+                      pairs_per_s=65536.0 ** 2 / (ms * 1e-3), gpu=smi)
+    del xs[32]
     # the prologue study's own path (scripts/bench_prologue.py's main): a
     # gate against K1's function without the cuts, then each variant timed
     # at its operating points (:196-210) beside that function and the
@@ -1260,28 +1381,30 @@ def main():
               shape="2 datasets x 4 models, d=6/7/7/8, 24000-64000 rows "
                     "per cell in 4 chains", **t, gpu=smi)
 
-    src = "mcevidence_tpu_torch/csrc/knn_select.cu"
+    # each kernel's body (the __global__ function) is in knn_common.cuh; the
+    # source beside it instantiates it and holds the C entry point
+    csrc = "mcevidence_tpu_torch/csrc/"
+    body = csrc + "knn_common.cuh"
     pallas = "mcevidence_tpu/ops/knn_pallas.py"
     kernels = [
-        {"name": "knn_select_small_k", "route": "cuda", "source": src,
+        {"name": "knn_select_small_k", "entry": csrc + "knn_select.cu",
          "replaces": f"{pallas}:275", "also_replaces": f"{pallas}:151"},
-        {"name": "knn_select_large_k", "route": "cuda", "source": src,
+        {"name": "knn_select_large_k", "entry": csrc + "knn_select.cu",
          "replaces": f"{pallas}:892",
          "also_replaces": f"{pallas}:749 {pallas}:151"},
-        {"name": "knn_select_batched", "route": "cuda", "source": src,
+        {"name": "knn_select_batched", "entry": csrc + "knn_select.cu",
          "replaces": f"{pallas}:371"},
-        {"name": "knn_select_smalld", "route": "cuda",
-         "source": "mcevidence_tpu_torch/csrc/knn_smalld.cu",
+        {"name": "knn_select_smalld", "entry": csrc + "knn_smalld.cu",
          "replaces": f"{pallas}:546", "also_replaces": f"{pallas}:634"},
-        {"name": "knn_select_packed", "route": "cuda",
-         "source": "mcevidence_tpu_torch/csrc/knn_packed.cu",
+        {"name": "knn_select_packed", "entry": csrc + "knn_packed.cu",
          "replaces": f"{pallas}:258",
          "also_replaces": f"{pallas}:398 {pallas}:275"},
-        {"name": "knn_select_prologue", "route": "cuda",
-         "source": "mcevidence_tpu_torch/csrc/knn_packed.cu",
+        {"name": "knn_select_prologue", "entry": csrc + "knn_packed.cu",
          "replaces": "scripts/bench_prologue.py:65"},
     ]
     for kern in kernels:
+        kern.update(route="cuda", source=body,
+                    sources=[body, kern.pop("entry")])
         nm = kern["name"]
         ms, plain_ms, b_ms, b_by = times[nm]
         # no single PyTorch call selects k nearest neighbours

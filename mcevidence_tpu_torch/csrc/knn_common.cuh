@@ -39,19 +39,51 @@
 //                mantissa bits of d2 cleared (knn_packed.cu's TruncKey)
 // A slot's d2 is decoded from its key, so a truncating policy returns the
 // truncated d2.  +inf keeps its bits under truncation (its mantissa is 0).
+// Both bodies keep the k smallest keys under this total order, so every
+// design of them returns the same bits.
 //
 // A layout L provides
 //   kWidth       floats per row as laid out
-//   kTileFloats  shared floats of one small-k tile of kTile reference rows
+//   kVec         floats per asynchronous copy of a row piece: 4 where every
+//                row starts on 16 bytes (Padded), else 1
 //   load_query(qv, q, row)      query row `row` into registers
-//   stage(tile, r, base, rows)  reference rows [base, base + rows) into the
-//                               shared tile (all threads of the block)
-//   tile_dist(qv, tile, jj)     d2 to tile row jj
-//   row_dist(qv, r, j)          d2 to reference row j, read from global
-//                               memory through the read-only cache
+// The bodies stage reference rows into shared memory themselves.
 //
 // Each launcher returns cudaGetLastError() after its launch; it allocates
 // nothing and does not synchronise.
+//
+// What bounds the bodies on the H100, and what the design does about it.
+// The TPU kernels (K1-K9, mcevidence_tpu/ops/knn_pallas.py) take d2 by the
+// matrix identity on the matrix unit.  Here the exact contract rules that
+// out in TF32 or 3xTF32: `fast` consumes the returned d2, and near
+// neighbours in whitened space (d2 ~ 0.06 against |q|^2 ~ 8) would lose
+// ~1e-5 of it to cancellation.  So the bodies take differences on the CUDA
+// cores: 2 f32 instructions a coordinate a pair (subtract, FMA), ~2 ms of
+// issue at N = 65536, d = 8: the bound of the TPU kernel's matrix work (2 d
+// flops a pair at the f32 peak) is 1.03 ms, so this design reaches at most
+// ~50% of it.  Around that floor:
+//   small-k  bound by instruction issue and its stalls: every shared read,
+//            key, compare and branch is one more instruction a pair.  A
+//            thread holds up to two query rows, so one broadcast read of a
+//            tile row feeds both; the keys of four tile rows are screened
+//            by one compare of their least high word against the worst
+//            key's (never less strict than the 64-bit compare, so the
+//            result is the same), and only a passing screen looks at each
+//            key, the self test last; two threads share each query row,
+//            one tile each, so a card holds twice the warps, and merge
+//            their lists at the end; the tiles are double-buffered with
+//            cp.async, one barrier a step.
+//   large-k  WarpSelect (Johnson, Douze and Jegou, arXiv:1702.08734): a
+//            warp's lanes take 32 different reference rows at a time from
+//            a coordinate-major shared tile (conflict-free), against one
+//            warp-wide threshold, the k-th key of a warp queue sorted
+//            across the registers; only keys under it enter a lane's short
+//            thread queue, one vote a step finds the rare step that queued
+//            one, and a full queue anywhere in the warp merges all of them
+//            into the warp queue by bitonic networks of __shfl_xor_sync.  A
+//            query accepts ~k (1 + ln(N / k)) keys, so the sweep, not the
+//            selection, sets the time; one tile load feeds every warp of
+//            the block.
 
 #pragma once
 
@@ -63,10 +95,14 @@ namespace knn {
 constexpr unsigned long long kEmpty = 0xFFFFFFFFFFFFFFFFull;
 constexpr unsigned kFullMask = 0xFFFFFFFFu;
 constexpr int kSmallThreads = 128;
-constexpr int kTile = 128;            // reference rows per small-k tile
+constexpr int kTile = 128;             // reference rows per small-k tile
+constexpr int kScreen = 4;             // small-k tile rows a screen
+constexpr int kSplit = 2;              // small-k threads a query row
+static_assert(kTile % kScreen == 0, "a screen never crosses a tile");
 constexpr int kLargeMaxK = 256;
-constexpr int kLargeMaxWarps = 8;
-constexpr int kLargeSmemTarget = 64 * 1024;
+constexpr int kLargeWarps = 16;        // warps per large-k block
+constexpr int kLargeTileFloats = 4096;  // floats of one large-k tile
+constexpr int kThreadQueue = 2;        // keys a lane holds between merges
 
 // Where batch member b lives and how many of its rows are valid.
 struct Members {
@@ -89,6 +125,10 @@ __device__ __forceinline__ unsigned long long make_key(float d2, int j) {
            static_cast<unsigned>(j);
 }
 
+__device__ __forceinline__ unsigned high_word(unsigned long long key) {
+    return static_cast<unsigned>(key >> 32);
+}
+
 // the exact ranking: every bit of d2
 struct ExactKey {
     __device__ __forceinline__ unsigned long long operator()(float d2,
@@ -97,16 +137,15 @@ struct ExactKey {
     }
 };
 
-// Compile-time cuts of the small-k body (the prologue study, knn_packed.cu):
+// The prologue study's compile-time cut of the small-k body (knn_packed.cu):
 //   kCutBound  the reference allocation is padded by the caller to a multiple
 //              of kTile with sentinel rows (1e18 in every column) and nr is
 //              that padded count: every tile is full, so the inner loop has
 //              no min(kTile, nr - base) bound; a slot whose d2 > 1e30 (a
 //              sentinel) comes back absent
-//   kCutPin    the self test j != self_row runs only in the one tile whose
-//              base is the block's first query row (kTile == kSmallThreads)
+// (The study's cut C, the self test only where it can matter, is part of
+// every small-k body.)
 constexpr int kCutBound = 1;
-constexpr int kCutPin = 2;
 
 __device__ __forceinline__ void write_slot(float* out_d2, int* out_idx,
                                            long long pos,
@@ -115,9 +154,57 @@ __device__ __forceinline__ void write_slot(float* out_d2, int* out_idx,
         out_d2[pos] = __int_as_float(0x7F800000);
         out_idx[pos] = -1;
     } else {
-        out_d2[pos] = __uint_as_float(static_cast<unsigned>(key >> 32));
+        out_d2[pos] = __uint_as_float(high_word(key));
         out_idx[pos] = static_cast<int>(key & 0xFFFFFFFFull);
     }
+}
+
+// ---------------------------------------------------------------------------
+// Asynchronous copies from global to shared memory (cp.async): a 16-byte
+// copy bypasses L1, a 4-byte one goes through it.
+// ---------------------------------------------------------------------------
+
+template <int V>
+__device__ __forceinline__ void copy_async(float* dst, const float* src) {
+    static_assert(V == 1 || V == 4, "cp.async copies 4 or 16 bytes");
+    const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+    if constexpr (V == 4)
+        asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s),
+                     "l"(src)
+                     : "memory");
+    else
+        asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(s),
+                     "l"(src)
+                     : "memory");
+}
+
+__device__ __forceinline__ void copy_commit() {
+    asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void copy_wait() {
+    asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+}
+
+// ---------------------------------------------------------------------------
+// The small-k body (k_sel < 14).  Each thread holds R query rows (R = 2 up
+// to 16 columns and k - self_mode <= 8, else 1), blockIdx.y the batch
+// member, and kSplit threads share each query row.  The block streams the
+// member's reference rows a step of kSplit tiles of kTile rows at a time,
+// laid out as in global memory: while the block reads one step, cp.async
+// fills the other buffer, one barrier a step; part h of the threads takes
+// tile h of the step.  Every thread of a part reads the same tile row at the
+// same time (a broadcast, no bank conflict) and takes R distances from it.
+// Each thread keeps its sorted top-KP keys per row in registers (KP is k
+// rounded up to a power of two, so every index into the list is static) and
+// inserts by one compare-swap pass; at the end the other parts hand their
+// lists to part 0 through shared memory.  Key ranks the candidates; Cuts is
+// the prologue study's kCutBound or 0.
+// ---------------------------------------------------------------------------
+
+template <int W, int KP>
+__host__ __device__ constexpr int small_rows() {
+    return W <= 16 && KP <= 8 ? 2 : 1;
 }
 
 // Insert key into a thread's sorted register list best[0..KP) (ascending),
@@ -134,68 +221,98 @@ __device__ __forceinline__ void insert_sorted(unsigned long long (&best)[KP],
     }
 }
 
-// Insert key into lane `lane`'s sorted list of `keep` keys laid out
-// [slot][lane] in shared memory; returns the new worst key of the list.
-// The caller has checked key < the current worst.
-__device__ __forceinline__ unsigned long long insert_lane_list(
-        unsigned long long* list, int keep, int lane,
-        unsigned long long key) {
-    int s = keep - 1;
-    while (s > 0 && list[(s - 1) * 32 + lane] > key) {
-        list[s * 32 + lane] = list[(s - 1) * 32 + lane];
-        --s;
-    }
-    list[s * 32 + lane] = key;
-    return list[(keep - 1) * 32 + lane];
+// reference rows [base, base + rows) into `tile` as laid out in global memory
+template <class L>
+__device__ __forceinline__ void stage_rows(float* tile, const float* r,
+                                           int base, int rows) {
+    constexpr int V = L::kVec;
+    const float* src = r + (long long)base * L::kWidth;
+    for (int t = threadIdx.x; t < rows * (L::kWidth / V); t += blockDim.x)
+        copy_async<V>(tile + t * V, src + (long long)t * V);
 }
 
-// Merge the 32 lanes' sorted lists of `keep` keys: pop the warp-wide
-// minimum of the list heads `keep` times and write slots first..first+keep
-// of output row o (lane 0 writes).  Keys are unique (distinct indices), so
-// exactly one lane advances per pop.
-__device__ __forceinline__ void merge_lane_lists(
-        const unsigned long long* list, int keep, int lane, float* out_d2,
-        int* out_idx, long long o, int first) {
-    int h = 0;
-    unsigned long long head = keep > 0 ? list[lane] : kEmpty;
-    for (int s = 0; s < keep; ++s) {
-        unsigned long long mn = head;
+// d2 of R query rows to one staged reference row, each summed in coordinate
+// order
+template <class L, int R>
+__device__ __forceinline__ void row_dists(float (&d2)[R],
+                                          const float (&qv)[R][L::kWidth],
+                                          const float* row) {
+    constexpr int W = L::kWidth, V = L::kVec;
 #pragma unroll
-        for (int off = 16; off > 0; off >>= 1) {
-            const unsigned long long other =
-                __shfl_xor_sync(kFullMask, mn, off);
-            mn = other < mn ? other : mn;
+    for (int i = 0; i < R; ++i) d2[i] = 0.0f;
+#pragma unroll
+    for (int c = 0; c < W; c += V) {
+        float v[V];
+        if constexpr (V == 4) {
+            const float4 x = *reinterpret_cast<const float4*>(row + c);
+            v[0] = x.x;
+            v[1] = x.y;
+            v[2] = x.z;
+            v[3] = x.w;
+        } else {
+            v[0] = row[c];
         }
-        if (mn != kEmpty && head == mn) {
-            ++h;
-            head = h < keep ? list[h * 32 + lane] : kEmpty;
+#pragma unroll
+        for (int e = 0; e < V; ++e) {
+#pragma unroll
+            for (int i = 0; i < R; ++i) {
+                const float t = qv[i][c + e] - v[e];
+                d2[i] = fmaf(t, t, d2[i]);
+            }
         }
-        if (lane == 0) write_slot(out_d2, out_idx, o + first + s, mn);
     }
 }
 
-// ---------------------------------------------------------------------------
-// The small-k body (k_sel < 14).  One thread per query row, blockIdx.y the
-// batch member.  The block streams the member's reference rows through a
-// shared tile of kTile rows; every thread reads the same tile row at the
-// same time (a broadcast, no bank conflict).  Each thread keeps its sorted
-// top-KP keys in registers (KP is k rounded up to a power of two, so every
-// index into the list is static) and inserts by one compare-swap pass.  Key
-// ranks the candidates; Cuts (a mask of kCutBound and kCutPin) are the
-// prologue study's compile-time cuts.
-// ---------------------------------------------------------------------------
-
-static_assert(kTile == kSmallThreads,
-              "kCutPin: one tile holds all of a block's self rows");
+// Tile rows [0, rows) (reference rows base + jj) against a thread's R query
+// rows: kScreen rows' distances at a time, then one screen a query row, the
+// smallest high word of their keys against the worst key's; only a screen
+// that passes looks at each key.  kWhole: rows == kTile, so no row of a
+// screen lies past `rows` (else those rows key as kEmpty).
+template <class L, int R, int KP, class Key, bool kWhole>
+__device__ __forceinline__ void sweep_tile(
+        unsigned long long (&best)[R][KP], const float (&qv)[R][L::kWidth],
+        const float* tile, int base, int rows, const int (&self_row)[R]) {
+    constexpr int W = L::kWidth;
+    const Key key_of{};
+    const int span = kWhole ? kTile : rows;
+#pragma unroll 1
+    for (int jj = 0; jj < span; jj += kScreen) {
+        float d2[kScreen][R];
+#pragma unroll
+        for (int g = 0; g < kScreen; ++g)
+            row_dists<L, R>(d2[g], qv, tile + (jj + g) * W);
+#pragma unroll
+        for (int i = 0; i < R; ++i) {
+            unsigned least = 0xFFFFFFFFu;
+#pragma unroll
+            for (int g = 0; g < kScreen; ++g) {
+                const unsigned h = high_word(key_of(d2[g][i], base + jj + g));
+                if (kWhole || jj + g < rows) least = min(least, h);
+            }
+            if (least > high_word(best[i][KP - 1])) continue;
+#pragma unroll
+            for (int g = 0; g < kScreen; ++g) {
+                const int j = base + jj + g;
+                const unsigned long long key = key_of(d2[g][i], j);
+                if ((kWhole || jj + g < rows) && key < best[i][KP - 1] &&
+                    j != self_row[i])
+                    insert_sorted<KP>(best[i], key);
+            }
+        }
+    }
+}
 
 template <class L, int KP, class Key = ExactKey, int Cuts = 0>
-__global__ void __launch_bounds__(kSmallThreads)
+__global__ void __launch_bounds__(kSmallThreads * kSplit)
 knn_small_k_kernel(const float* __restrict__ q, const float* __restrict__ r,
                    Members m, int k, int self_mode,
                    float* __restrict__ out_d2, int* __restrict__ out_idx) {
     constexpr int W = L::kWidth;
+    constexpr int R = small_rows<W, KP>();
+    constexpr int kStep = kSplit * kTile;       // reference rows a step
+    constexpr int kStepFloats = kStep * W;
     const Key key_of{};
-    __shared__ __align__(16) float tile[L::kTileFloats];
+    extern __shared__ __align__(16) float smem[];  // two steps' tiles
     const int b = blockIdx.y;
     const int nq = m.queries(b);
     const int nr = m.refs(b);
@@ -204,136 +321,401 @@ knn_small_k_kernel(const float* __restrict__ q, const float* __restrict__ r,
     out_d2 += (long long)b * m.q_rows * k;
     out_idx += (long long)b * m.q_rows * k;
 
-    const int first = blockIdx.x * blockDim.x;
-    const int row = first + threadIdx.x;
-    if (row >= nq && row < m.q_rows) {
-        // a padded query row: absent slots, no search
-        for (int s = 0; s < k; ++s)
-            write_slot(out_d2, out_idx, (long long)row * k + s, kEmpty);
+    // kSplit threads share each query row; part h takes tile h of a step
+    const int part = threadIdx.x / kSmallThreads;
+    const int lane_row = threadIdx.x % kSmallThreads;
+    const int first = blockIdx.x * (R * kSmallThreads);
+    int row[R], self_row[R];
+    bool active[R], any = false;
+#pragma unroll
+    for (int i = 0; i < R; ++i) {
+        row[i] = first + i * kSmallThreads + lane_row;
+        if (part == 0 && row[i] >= nq && row[i] < m.q_rows) {
+            // a padded query row: absent slots, no search
+            for (int s = 0; s < k; ++s)
+                write_slot(out_d2, out_idx, (long long)row[i] * k + s,
+                           kEmpty);
+        }
+        active[i] = row[i] < nq;
+        any |= active[i];
+        self_row[i] = (self_mode && active[i]) ? row[i] : -1;
     }
     if (first >= nq) return;  // the whole block is padding
-    const bool active = row < nq;
-    const int self_row = (self_mode && active) ? row : -1;
 
-    float qv[W] = {};
-    if (active) L::load_query(qv, q, row);
-    unsigned long long best[KP];
+    float qv[R][W] = {};
+    unsigned long long best[R][KP];
 #pragma unroll
-    for (int s = 0; s < KP; ++s) best[s] = kEmpty;
+    for (int i = 0; i < R; ++i) {
+        if (active[i]) L::load_query(qv[i], q, row[i]);
+#pragma unroll
+        for (int s = 0; s < KP; ++s) best[i][s] = kEmpty;
+    }
 
-    for (int base = 0; base < nr; base += kTile) {
-        const int rows = (Cuts & kCutBound) ? kTile : min(kTile, nr - base);
+    const int steps = (nr + kStep - 1) / kStep;
+    if (steps > 0) {
+        stage_rows<L>(smem, r, 0, min(kStep, nr));
+        copy_commit();
+    }
+    for (int t = 0; t < steps; ++t) {
+        const int base = t * kStep + part * kTile;
+        // rows of this part's tile that lie before nr; with kCutBound nr is
+        // a multiple of kTile, so a tile is whole or past the end
+        const int left = nr - base;
+        copy_wait();
+        // step t has landed everywhere, and every thread is done with the
+        // buffer the next copy overwrites
         __syncthreads();
-        L::stage(tile, r, base, rows);
-        __syncthreads();
-        if (!active) continue;
-        if ((Cuts & kCutPin) && base != first) {
-            // no self row of this block lies in this tile
-            for (int jj = 0; jj < rows; ++jj) {
-                const unsigned long long key =
-                    key_of(L::tile_dist(qv, tile, jj), base + jj);
-                if (key < best[KP - 1]) insert_sorted<KP>(best, key);
+        if (t + 1 < steps) {
+            const int next = (t + 1) * kStep;
+            stage_rows<L>(smem + ((t + 1) & 1) * kStepFloats, r, next,
+                          min(kStep, nr - next));
+            copy_commit();
+        }
+        if (!any) continue;
+        const float* tile =
+            smem + (t & 1) * kStepFloats + part * (kTile * W);
+        if (left >= kTile)
+            sweep_tile<L, R, KP, Key, true>(best, qv, tile, base, kTile,
+                                            self_row);
+        else if (!(Cuts & kCutBound) && left > 0)
+            sweep_tile<L, R, KP, Key, false>(best, qv, tile, base, left,
+                                             self_row);
+    }
+    if (kSplit > 1) {
+        // parts 1.. hand their lists to part 0 through shared memory, one
+        // query row of the thread at a time
+        unsigned long long* lists = reinterpret_cast<unsigned long long*>(smem);
+#pragma unroll
+        for (int i = 0; i < R; ++i) {
+            __syncthreads();
+            if (part > 0) {
+#pragma unroll
+                for (int s = 0; s < KP; ++s)
+                    lists[((part - 1) * KP + s) * kSmallThreads + lane_row] =
+                        best[i][s];
             }
-            continue;
-        }
-        for (int jj = 0; jj < rows; ++jj) {
-            const int j = base + jj;
-            const unsigned long long key =
-                key_of(L::tile_dist(qv, tile, jj), j);
-            if (key < best[KP - 1] && j != self_row)
-                insert_sorted<KP>(best, key);
-        }
-    }
-    if (!active) return;
-    const long long o = (long long)row * k;
-    int slot = 0;
-    if (self_mode) {
-        out_d2[o] = 0.0f;
-        out_idx[o] = row;
-        slot = 1;
-    }
+            __syncthreads();
+            if (part == 0 && active[i]) {
+                for (int h = 0; h < kSplit - 1; ++h) {
 #pragma unroll
-    for (int s = 0; s < KP; ++s) {
-        unsigned long long key = best[s];
-        // a sentinel row won the slot: fewer valid candidates than k
-        if ((Cuts & kCutBound) && key != kEmpty &&
-            __uint_as_float(static_cast<unsigned>(key >> 32)) > 1e30f)
-            key = kEmpty;
-        if (slot + s < k) write_slot(out_d2, out_idx, o + slot + s, key);
+                    for (int s = 0; s < KP; ++s) {
+                        const unsigned long long key =
+                            lists[(h * KP + s) * kSmallThreads + lane_row];
+                        if (key < best[i][KP - 1])
+                            insert_sorted<KP>(best[i], key);
+                    }
+                }
+            }
+        }
+    }
+    if (part > 0) return;
+#pragma unroll
+    for (int i = 0; i < R; ++i) {
+        if (!active[i]) continue;
+        const long long o = (long long)row[i] * k;
+        int slot = 0;
+        if (self_mode) {
+            out_d2[o] = 0.0f;
+            out_idx[o] = row[i];
+            slot = 1;
+        }
+#pragma unroll
+        for (int s = 0; s < KP; ++s) {
+            unsigned long long key = best[i][s];
+            // a sentinel row won the slot: fewer valid candidates than k
+            if ((Cuts & kCutBound) && key != kEmpty &&
+                __uint_as_float(high_word(key)) > 1e30f)
+                key = kEmpty;
+            if (slot + s < k) write_slot(out_d2, out_idx, o + slot + s, key);
+        }
     }
 }
 
 // ---------------------------------------------------------------------------
-// The large-k body (14 <= k_sel <= 256).  One warp per query row,
-// blockIdx.y the batch member.  Lane l scans reference rows l, l+32, ...
-// straight from global memory (no shared tile, so no block barrier: a
-// warp's insertions never hold another warp) and keeps a private sorted list
-// of up to k keys in dynamic shared memory, laid out [slot][lane] so a
-// warp's accesses fall in distinct banks.  No candidate is ever lost.  A
-// final merge pops the warp-wide minimum of the list heads k times with
-// __shfl_xor_sync.  Key ranks the candidates.
+// The large-k body (14 <= k_sel <= 256), WarpSelect.  A block of kLargeWarps
+// warps, each owning QW query rows (2 up to 16 columns and 64 keys, else 1),
+// blockIdx.y the batch member.  The block streams the member's reference rows through
+// two coordinate-major shared tiles, tile[c * S + jj], filled by 4-byte
+// cp.async from coalesced global reads (S pads each coordinate's run so the
+// copies' stores fall in distinct banks too), one barrier a tile.  Lane l
+// takes tile rows l, l + 32, ...: 32 rows at once, in distinct banks.
+//
+// Per query row: a warp queue of the 32 N smallest keys seen (N = 1, 2, 4
+// or 8 keys a lane, 32 N >= k), sorted across the warp with element e in
+// register e / 32 of lane e % 32; the threshold, its keep-th key, the same
+// in every lane; and in each lane a thread queue of up to kThreadQueue keys
+// under the threshold.  One vote a step tells whether any lane took a key;
+// only then does the warp ask whether a lane's queue is full, and if so it
+// merges every lane's queue, one key a lane a round: the round's 32 keys
+// are sorted by a bitonic network across the lanes, folded into the warp
+// queue's last register against their reverse (which leaves the 32 N
+// smallest as a bitonic sequence), and the warp queue is re-sorted by a
+// bitonic merge.  Keys that no longer beat the threshold drop out first.
 // ---------------------------------------------------------------------------
 
-template <class L, class Key = ExactKey>
-__global__ void knn_large_k_kernel(const float* __restrict__ q,
-                                   const float* __restrict__ r, Members m,
-                                   int k, int self_mode,
-                                   float* __restrict__ out_d2,
-                                   int* __restrict__ out_idx) {
+template <int W, int N>
+__host__ __device__ constexpr int large_queries() {
+    return W <= 16 && N <= 2 ? 2 : 1;
+}
+
+// reference rows per large-k tile: a power of two, with the tile within
+// kLargeTileFloats
+template <int W>
+__host__ __device__ constexpr int large_tile_rows() {
+    int t = 1024;
+    while (t > 32 && t * W > kLargeTileFloats) t >>= 1;
+    return t;
+}
+
+// floats between two coordinates' runs: 32 consecutive copies (t / W rows,
+// t % W columns) land in distinct banks when S = ceil(32 / W) mod 32
+template <int W>
+__host__ __device__ constexpr int large_tile_stride() {
+    return large_tile_rows<W>() + (32 + W - 1) / W;
+}
+
+// reference rows [base, base + rows) into `tile` coordinate-major
+template <class L>
+__device__ __forceinline__ void stage_columns(float* tile, const float* r,
+                                              int base, int rows) {
+    constexpr int W = L::kWidth, S = large_tile_stride<W>();
+    const float* src = r + (long long)base * W;
+    for (int t = threadIdx.x; t < rows * W; t += blockDim.x) {
+        const int jj = t / W;
+        copy_async<1>(tile + (t - jj * W) * S + jj, src + t);
+    }
+}
+
+__device__ __forceinline__ void compare_lanes(unsigned long long& v,
+                                              int stride, bool keep_min) {
+    const unsigned long long o = __shfl_xor_sync(kFullMask, v, stride);
+    v = (keep_min == (o < v)) ? o : v;
+}
+
+// sort one key a lane ascending across the warp (bitonic)
+__device__ __forceinline__ unsigned long long sort_lanes(unsigned long long v,
+                                                         int lane) {
+#pragma unroll
+    for (int size = 2; size <= 32; size <<= 1) {
+        const bool up = (lane & size) == 0;
+#pragma unroll
+        for (int stride = size >> 1; stride > 0; stride >>= 1)
+            compare_lanes(v, stride, ((lane & stride) == 0) == up);
+    }
+    return v;
+}
+
+// sort a bitonic sequence of 32 N keys (element e: register e / 32, lane
+// e % 32) ascending
+template <int N>
+__device__ __forceinline__ void merge_bitonic(unsigned long long (&a)[N],
+                                              int lane) {
+#pragma unroll
+    for (int s = N / 2; s > 0; s >>= 1) {
+#pragma unroll
+        for (int i = 0; i < N; ++i) {
+            if (i & s) continue;
+            const unsigned long long lo = a[i] < a[i + s] ? a[i] : a[i + s];
+            const unsigned long long hi = a[i] < a[i + s] ? a[i + s] : a[i];
+            a[i] = lo;
+            a[i + s] = hi;
+        }
+    }
+#pragma unroll
+    for (int stride = 16; stride > 0; stride >>= 1) {
+#pragma unroll
+        for (int i = 0; i < N; ++i)
+            compare_lanes(a[i], stride, (lane & stride) == 0);
+    }
+}
+
+// the keep-th smallest key of a sorted warp queue, in every lane
+template <int N>
+__device__ __forceinline__ unsigned long long kth_key(
+        const unsigned long long (&a)[N], int keep) {
+    const int reg = (keep - 1) >> 5;
+    unsigned long long v = a[0];
+#pragma unroll
+    for (int i = 1; i < N; ++i)
+        if (i == reg) v = a[i];
+    return __shfl_sync(kFullMask, v, (keep - 1) & 31);
+}
+
+// merge every lane's thread queue into the warp queue; updates the
+// threshold and empties the thread queues
+template <int N>
+__device__ __forceinline__ void merge_queues(
+        unsigned long long (&warp_q)[N],
+        unsigned long long (&thread_q)[kThreadQueue], int& count,
+        unsigned long long& threshold, int keep, int lane) {
+#pragma unroll
+    for (int s = 0; s < kThreadQueue; ++s) {
+        unsigned long long v =
+            (s < count && thread_q[s] < threshold) ? thread_q[s] : kEmpty;
+        if (!__any_sync(kFullMask, v != kEmpty)) continue;
+        v = sort_lanes(v, lane);
+        const unsigned long long rev = __shfl_xor_sync(kFullMask, v, 31);
+        if (rev < warp_q[N - 1]) warp_q[N - 1] = rev;
+        merge_bitonic<N>(warp_q, lane);
+        threshold = kth_key<N>(warp_q, keep);
+    }
+    count = 0;
+}
+
+template <class L, int N, class Key = ExactKey>
+__global__ void __launch_bounds__(kLargeWarps * 32)
+knn_large_k_kernel(const float* __restrict__ q, const float* __restrict__ r,
+                   Members m, int k, int self_mode,
+                   float* __restrict__ out_d2, int* __restrict__ out_idx) {
     constexpr int W = L::kWidth;
+    constexpr int QW = large_queries<W, N>();
+    constexpr int TR = large_tile_rows<W>();
+    constexpr int S = large_tile_stride<W>();
+    constexpr int kTileFloats = W * S;
     const Key key_of{};
-    extern __shared__ unsigned long long lists[];
+    extern __shared__ __align__(16) float smem[];  // two tiles
     const int lane = threadIdx.x & 31;
     const int warp = threadIdx.x >> 5;
     const int b = blockIdx.y;
-    const int row = blockIdx.x * (blockDim.x >> 5) + warp;
-    if (row >= m.q_rows) return;  // the whole warp leaves together
     const int nq = m.queries(b);
     const int nr = m.refs(b);
     q += (long long)b * m.q_rows * W;
     r += (long long)b * m.r_rows * W;
-    const long long o = ((long long)b * m.q_rows + row) * k;
-    if (row >= nq) {
-        // a padded query row: absent slots, no search
-        for (int s = lane; s < k; s += 32)
-            write_slot(out_d2, out_idx, o + s, kEmpty);
-        return;
-    }
+    out_d2 += (long long)b * m.q_rows * k;
+    out_idx += (long long)b * m.q_rows * k;
+
+    const int first = blockIdx.x * (kLargeWarps * QW);
     const int keep = self_mode ? k - 1 : k;
-    const int self_row = self_mode ? row : -1;
-    unsigned long long* list = lists + (long long)warp * keep * 32;
-
-    float qv[W];
-    L::load_query(qv, q, row);
-    for (int s = 0; s < keep; ++s) list[s * 32 + lane] = kEmpty;
-
-    if (keep > 0) {
-        unsigned long long worst = kEmpty;
-        for (int j = lane; j < nr; j += 32) {
-            const unsigned long long key = key_of(L::row_dist(qv, r, j), j);
-            if (key < worst && j != self_row)
-                worst = insert_lane_list(list, keep, lane, key);
+    int row[QW], self_row[QW];
+    bool active[QW], any = false;
+#pragma unroll
+    for (int i = 0; i < QW; ++i) {
+        row[i] = first + warp * QW + i;
+        if (row[i] >= nq && row[i] < m.q_rows) {
+            // a padded query row: absent slots, no search
+            for (int s = lane; s < k; s += 32)
+                write_slot(out_d2, out_idx, (long long)row[i] * k + s,
+                           kEmpty);
+        }
+        active[i] = row[i] < nq;
+        any |= active[i];
+        self_row[i] = (self_mode && active[i]) ? row[i] : -1;
+        if (active[i] && self_mode && lane == 0) {
+            out_d2[(long long)row[i] * k] = 0.0f;
+            out_idx[(long long)row[i] * k] = row[i];
         }
     }
-    __syncwarp();
+    // the whole block is padding, or only the self slot is asked for
+    if (first >= nq || keep <= 0) return;
 
-    int slot = 0;
-    if (self_mode) {
-        if (lane == 0) {
-            out_d2[o] = 0.0f;
-            out_idx[o] = row;
-        }
-        slot = 1;
+    float qv[QW][W] = {};
+    unsigned long long warp_q[QW][N], thread_q[QW][kThreadQueue];
+    unsigned long long threshold[QW];
+    int count[QW];
+#pragma unroll
+    for (int i = 0; i < QW; ++i) {
+        if (active[i]) L::load_query(qv[i], q, row[i]);
+#pragma unroll
+        for (int s = 0; s < N; ++s) warp_q[i][s] = kEmpty;
+#pragma unroll
+        for (int s = 0; s < kThreadQueue; ++s) thread_q[i][s] = kEmpty;
+        threshold[i] = kEmpty;
+        count[i] = 0;
     }
-    merge_lane_lists(list, keep, lane, out_d2, out_idx, o, slot);
+
+    const int tiles = (nr + TR - 1) / TR;
+    if (tiles > 0) {
+        stage_columns<L>(smem, r, 0, min(TR, nr));
+        copy_commit();
+    }
+    for (int t = 0; t < tiles; ++t) {
+        const int base = t * TR;
+        const int rows = min(TR, nr - base);
+        copy_wait();
+        // tile t has landed everywhere, and every warp is done with the
+        // buffer the next copy overwrites
+        __syncthreads();
+        if (t + 1 < tiles) {
+            const int next = base + TR;
+            stage_columns<L>(smem + ((t + 1) & 1) * kTileFloats, r, next,
+                             min(TR, nr - next));
+            copy_commit();
+        }
+        if (!any) continue;  // the same in every lane of the warp
+        const float* tile = smem + (t & 1) * kTileFloats;
+        const int span = (rows + 31) & ~31;
+        for (int jj = lane; jj < span; jj += 32) {
+            float d2[QW];
+#pragma unroll
+            for (int i = 0; i < QW; ++i) d2[i] = 0.0f;
+#pragma unroll
+            for (int c = 0; c < W; ++c) {
+                const float x = tile[c * S + jj];
+#pragma unroll
+                for (int i = 0; i < QW; ++i) {
+                    const float tt = qv[i][c] - x;
+                    d2[i] = fmaf(tt, tt, d2[i]);
+                }
+            }
+            const int j = base + jj;
+            unsigned long long key[QW];
+            bool take[QW], any_take = false;
+#pragma unroll
+            for (int i = 0; i < QW; ++i) {
+                key[i] = (jj < rows && active[i]) ? key_of(d2[i], j) : kEmpty;
+                take[i] = key[i] < threshold[i] && j != self_row[i];
+                any_take |= take[i];
+            }
+            // one vote a step: the queues change only in the rare step
+            // where a lane of the warp takes a key
+            if (!__any_sync(kFullMask, any_take)) continue;
+#pragma unroll
+            for (int i = 0; i < QW; ++i) {
+                if (take[i]) {
+#pragma unroll
+                    for (int s = kThreadQueue - 1; s > 0; --s)
+                        thread_q[i][s] = thread_q[i][s - 1];
+                    thread_q[i][0] = key[i];
+                    ++count[i];
+                }
+                if (__any_sync(kFullMask, count[i] == kThreadQueue))
+                    merge_queues<N>(warp_q[i], thread_q[i], count[i],
+                                    threshold[i], keep, lane);
+            }
+        }
+    }
+    if (!any) return;
+#pragma unroll
+    for (int i = 0; i < QW; ++i) {
+        if (__any_sync(kFullMask, count[i] > 0))
+            merge_queues<N>(warp_q[i], thread_q[i], count[i], threshold[i],
+                            keep, lane);
+        if (!active[i]) continue;
+        const long long o = (long long)row[i] * k + (self_mode ? 1 : 0);
+#pragma unroll
+        for (int s = 0; s < N; ++s) {
+            const int e = s * 32 + lane;
+            if (e < keep) write_slot(out_d2, out_idx, o + e, warp_q[i][s]);
+        }
+    }
 }
 
 template <class L, int KP, class Key, int Cuts>
 cudaError_t launch_small(const float* q, const float* r, int batch,
                          const Members& m, int k, int self_mode,
                          float* out_d2, int* out_idx, cudaStream_t stream) {
-    const dim3 grid((m.q_rows + kSmallThreads - 1) / kSmallThreads, batch);
-    knn_small_k_kernel<L, KP, Key, Cuts><<<grid, kSmallThreads, 0, stream>>>(
+    constexpr int rows = small_rows<L::kWidth, KP>() * kSmallThreads;
+    constexpr int tiles = 2 * kSplit * kTile * L::kWidth * (int)sizeof(float);
+    constexpr int lists = (kSplit - 1) * KP * kSmallThreads * 8;
+    constexpr int smem = tiles > lists ? tiles : lists;
+    const auto kernel = knn_small_k_kernel<L, KP, Key, Cuts>;
+    if (smem > 48 * 1024) {
+        const cudaError_t err = cudaFuncSetAttribute(
+            kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+        if (err != cudaSuccess) return err;
+    }
+    const dim3 grid((m.q_rows + rows - 1) / rows, batch);
+    kernel<<<grid, kSmallThreads * kSplit, smem, stream>>>(
         q, r, m, k, self_mode, out_d2, out_idx);
     return cudaGetLastError();
 }
@@ -358,24 +740,36 @@ cudaError_t dispatch_small_k(const float* q, const float* r, int batch,
     return cudaErrorInvalidValue;
 }
 
+template <class L, int N, class Key>
+cudaError_t launch_large(const float* q, const float* r, int batch,
+                         const Members& m, int k, int self_mode,
+                         float* out_d2, int* out_idx, cudaStream_t stream) {
+    constexpr int W = L::kWidth;
+    constexpr int rows = kLargeWarps * large_queries<W, N>();
+    constexpr int smem = 2 * W * large_tile_stride<W>() * (int)sizeof(float);
+    static_assert(smem <= 48 * 1024, "the large-k tiles fit the default");
+    const dim3 grid((m.q_rows + rows - 1) / rows, batch);
+    knn_large_k_kernel<L, N, Key><<<grid, kLargeWarps * 32, smem, stream>>>(
+        q, r, m, k, self_mode, out_d2, out_idx);
+    return cudaGetLastError();
+}
+
 template <class L, class Key = ExactKey>
 cudaError_t dispatch_large_k(const float* q, const float* r, int batch,
                              const Members& m, int k, int self_mode,
                              float* out_d2, int* out_idx,
                              cudaStream_t stream) {
     if (k > kLargeMaxK) return cudaErrorInvalidValue;
+    // keys a lane holds in the warp queue: k, less the self slot, over 32,
+    // rounded up to 2^m
     const int keep = self_mode ? k - 1 : k;
-    const int per_warp = (keep > 0 ? keep : 1) * 32 * (int)sizeof(unsigned long long);
-    int warps = kLargeSmemTarget / per_warp;
-    warps = warps < 1 ? 1 : (warps > kLargeMaxWarps ? kLargeMaxWarps : warps);
-    const int smem = warps * per_warp;
-    cudaError_t err = cudaFuncSetAttribute(
-        knn_large_k_kernel<L, Key>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-    if (err != cudaSuccess) return err;
-    const dim3 grid((m.q_rows + warps - 1) / warps, batch);
-    knn_large_k_kernel<L, Key><<<grid, warps * 32, smem, stream>>>(
-        q, r, m, k, self_mode, out_d2, out_idx);
-    return cudaGetLastError();
+    if (keep <= 32)
+        return launch_large<L, 1, Key>(q, r, batch, m, k, self_mode, out_d2, out_idx, stream);
+    if (keep <= 64)
+        return launch_large<L, 2, Key>(q, r, batch, m, k, self_mode, out_d2, out_idx, stream);
+    if (keep <= 128)
+        return launch_large<L, 4, Key>(q, r, batch, m, k, self_mode, out_d2, out_idx, stream);
+    return launch_large<L, 8, Key>(q, r, batch, m, k, self_mode, out_d2, out_idx, stream);
 }
 
 using Dispatch = cudaError_t (*)(const float*, const float*, int,

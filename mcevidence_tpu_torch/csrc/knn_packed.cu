@@ -31,16 +31,14 @@
 //      inner loop runs a constant kTile rows with no `min(kTile, nr - base)`
 //      bound ((1e18)^2 * 64 ~ 6.4e37 stays finite in f32); slots whose
 //      d2 > 1e30 come back absent (bench_prologue.py:152-154);
-//   C  the self pin only on tiles that cross the diagonal: the j != self_row
-//      test runs only in the tile whose base is the block's first query row.
+//   C  the self pin only where it can matter: every small-k body now runs
+//      the j != self_row test only for a candidate that beats its row's
+//      worst key, so B and BC run the same code.
 // `cuts` takes B (1) or B and C (3).
 //
-// What bounds these kernels on the card: the distance sweep, 3*d f32
-// operations a pair on the CUDA cores, and the insertion of each candidate
-// that beats a row's current k-th key; the bytes (each row read once, the
-// outputs written once) are far smaller.  The design keeps the exact
-// kernels' bodies and changes only the key, so the truncation costs one
-// AND a candidate.
+// What bounds these kernels on the card, and what the bodies do about it,
+// is in knn_common.cuh.  The key policy changes only the key, so the
+// truncation costs one AND a candidate.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -79,11 +77,9 @@ Dispatch packed_body(int dp, int low_bits, bool large) {
 
 Dispatch prologue_body(int dp, int cuts) {
     switch (cuts) {
-        case knn::kCutBound:
+        case 1:  // B
+        case 3:  // B and C: C is part of every small-k body
             return knn::padded_small_k<TruncKey<12>, knn::kCutBound>(dp);
-        case knn::kCutBound | knn::kCutPin:
-            return knn::padded_small_k<TruncKey<12>,
-                                       knn::kCutBound | knn::kCutPin>(dp);
         default: return nullptr;
     }
 }

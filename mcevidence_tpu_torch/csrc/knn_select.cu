@@ -19,14 +19,11 @@
 // guard's retry and first passes at kmax >= 10.  With a batch it is also
 // K5's counterpart at k_sel >= 14 (K5 takes any k, and the grid's
 // thin-margin retries ask for kmax+24 and kmax+104), and K4's counterpart
-// from k = 14 on the fast path.  Its per-lane lists are K2's lane bins with
-// depth k: no candidate is lost, so it meets K2's <= 5e-7 loss bound and
-// K3's exact contract, with no 262,144-row cap.
+// from k = 14 on the fast path.  It is exact, so it meets K2's <= 5e-7
+// loss bound and K3's exact contract, with no 262,144-row cap.
 //
-// The layout is knn_padded.cuh's: the small-k body reads the shared tile as
-// float4 rows; the large-k body reads float4 rows through L1 from L2.
-// Tensor-core distance tiles, a TMA ring and a warp-shared insertion
-// threshold are later work.
+// The layout is knn_padded.cuh's; what bounds each body on the card and
+// what its design does about it is in knn_common.cuh.
 
 #include <cuda_runtime.h>
 #include <stdint.h>

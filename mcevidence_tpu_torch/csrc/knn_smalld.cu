@@ -10,12 +10,13 @@
 // d <= 16, and sums d_real per-coordinate squared differences over a
 // reference tile pre-transposed to (d, TR).  Here D = d_real is a template
 // parameter (1..16), so the distance loop is unrolled over exactly the true
-// coordinates, the rows are stored unpadded (no float4 padding to 8 columns
-// as in knn_select.cu), and the small-k body stages its reference tile in
-// shared memory coordinate-major, tile[c][row], as K8's `rt`.  The large-k
-// body reads each row's D floats through the read-only cache.  Exact, so
-// the selection meets K8's <= 2^-12 quantisation contract with room to
-// spare.
+// coordinates and the rows are stored unpadded (no float4 padding to 8
+// columns as in knn_select.cu).  The small-k body stages its tiles as laid
+// out in global memory (every thread reads the same row, a broadcast); the
+// large-k body stages them coordinate-major, tile[c][row], as K8's `rt`.
+// Rows of D floats need not start on 16 bytes, so both copy 4 bytes at a
+// time.  Exact, so the selection meets K8's <= 2^-12 quantisation contract
+// with room to spare.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -27,53 +28,18 @@ namespace {
 using knn::Dispatch;
 using knn::dispatch_large_k;
 using knn::dispatch_small_k;
-using knn::kTile;
 
 // [rows, D] f32 rows, unpadded: row i starts at i * D.
 template <int D>
 struct Compact {
     static constexpr int kWidth = D;
-    static constexpr int kTileFloats = kTile * D;
+    static constexpr int kVec = 1;
 
     static __device__ __forceinline__ void load_query(float (&qv)[D],
                                                       const float* q,
                                                       long long row) {
 #pragma unroll
         for (int c = 0; c < D; ++c) qv[c] = __ldg(q + row * D + c);
-    }
-
-    // coalesced global reads, coordinate-major stores
-    static __device__ __forceinline__ void stage(float* tile, const float* r,
-                                                 int base, int rows) {
-        const float* src = r + (long long)base * D;
-        for (int t = threadIdx.x; t < rows * D; t += blockDim.x) {
-            const int jj = t / D;
-            tile[(t - jj * D) * kTile + jj] = src[t];
-        }
-    }
-
-    static __device__ __forceinline__ float tile_dist(const float (&qv)[D],
-                                                      const float* tile,
-                                                      int jj) {
-        float acc = 0.0f;
-#pragma unroll
-        for (int c = 0; c < D; ++c) {
-            const float t = qv[c] - tile[c * kTile + jj];
-            acc = fmaf(t, t, acc);
-        }
-        return acc;
-    }
-
-    static __device__ __forceinline__ float row_dist(const float (&qv)[D],
-                                                     const float* r,
-                                                     long long j) {
-        float acc = 0.0f;
-#pragma unroll
-        for (int c = 0; c < D; ++c) {
-            const float t = qv[c] - __ldg(r + j * D + c);
-            acc = fmaf(t, t, acc);
-        }
-        return acc;
     }
 };
 
