@@ -43,6 +43,12 @@ fails before printing any result.
    multiple of a tile and under one tile, and blocks that mix real and
    padded query rows, each in self and cross mode on the ``Padded``,
    ``Compact`` and batched forms, under the same criterion.
+   ``knn_select_wide`` (k > 256 or d > 64): self and cross, 2-D and
+   batched, k = 257 / 264 / 300 / 512 / 1024 at d = 8 and d = 65 / 100 /
+   128 at k = 9 / 44, nr under one of its tiles and not a multiple of one,
+   garbage past nr, one-point rows in the exact tie order, exact and at 11
+   and 12 low bits, under the same criterion; and at k = 9 / 44 / 200 / 256
+   ``torch.equal`` to the two bodies' bits.
 4. the main paths through the user's entry points, each with the launch
    counts set to 0 just before it and read just after:
    a. refine precision: ``evidence_fn`` auto, cross, a lattice whose ties
@@ -82,6 +88,11 @@ fails before printing any result.
       ``MCEvidence`` on the same root; the CLI's ``--json`` prints the
       service's fields; ``python -m mcevidence_tpu_torch.compare`` on two
       roots gives ``MCEvidence``'s ln E.
+   h. past the two bodies' limits: ``evidence_fn`` refine at kmax = 60
+      (the guard's retry selects 264), fast at kmax = 300, and a
+      65-parameter chain in refine, device and fast, against the oracle at
+      1e-6 (fast 3e-3); ``knn_select_wide`` must launch, and no CUDA tensor
+      may reach the plain selection.
 5. times: each kernel against its plain version at the main paths' shapes
    (the small-d kernel beside the small-k and large-k kernels at d = 3, 6,
    7, 8; the packed selections at k = 9 and 44 beside the exact ones; the
@@ -93,7 +104,19 @@ fails before printing any result.
    rate), ``evidence_fn`` refine, device and fast wall times (also under
    ``pallas_packed``), the warm service requests' ``wall_s``, and the
    grid's per-dataset stage times, each printed with the card's name and
-   power limit.
+   power limit; the wide kernel at k = 264 / 300 (N=65536, d=8) and
+   d = 65 (N=16384, k=9).
+6. the ring (``parallel/ring.py``): 2 and 4 ranks of one gloo group, each a
+   process on the one card (NCCL takes one card a rank), with the library
+   built by this process first.  ``sharded_auto_evidence`` refine and fast,
+   ``sharded_cross_evidence`` and ``sharded_device_refine_evidence`` at
+   N=65536, d=8, kmax=5, and on 4 ranks the 2 x 2 dp x ring grid over the
+   synthetic grid's cells; every rank must give the same answer, within
+   1e-9 (refine), 1e-8 (device) or 3e-3 (fast) of the one-card answer, and
+   launch its kernel (the ranks' counts join the main paths' totals).
+   Then ``dryrun_multichip(4)`` on the card and ``planck --distributed``
+   on 2 ranks against the one-process tables.  A failed rank fails the
+   phase.  The times share one card and its host: not a scaling figure.
 
 The line before the last is a JSON object of the kernels; the last line is
 ``{"ok": true, "device": {...}}``.
@@ -126,7 +149,9 @@ FP32_PEAK = 67e12             # H100 SXM f32 outside the tensor cores, 700 W
 HBM_RATE = 3.35e12            # H100 SXM HBM3 bytes/s
 HERE = os.path.dirname(os.path.abspath(__file__))
 KERNELS = ("knn_select_small_k", "knn_select_large_k", "knn_select_batched",
-           "knn_select_smalld", "knn_select_packed", "knn_select_prologue")
+           "knn_select_smalld", "knn_select_packed", "knn_select_prologue",
+           "knn_select_wide")
+RING_NOTE = "ranks share one card: not a scaling figure"
 
 
 def phase(name, **fields):
@@ -503,7 +528,9 @@ FLOPS_TEXT = {"knn_select_small_k": "2*d a pair + 2*d a row (K1, K4)",
               "knn_select_batched": "2*d a pair + 2*d a row (K5)",
               "knn_select_smalld": "3*d a pair (K8, K9)",
               "knn_select_packed": "2*d a pair + 2*d a row (K6, K7, K1)",
-              "knn_select_prologue": "2*d a pair + 2*d a row (S1)"}
+              "knn_select_prologue": "2*d a pair + 2*d a row (S1)",
+              "knn_select_wide": "2*d a pair + 2*d a row (K2, K4, K6 past "
+                                 "k = 256 or d = 64)"}
 
 
 def bound(kernel, n, d, k, batch=1):
@@ -519,8 +546,9 @@ def bound(kernel, n, d, k, batch=1):
 
 
 def resource_table(log):
-    """Max registers and spill bytes of each selection body on each layout,
-    from nvcc's ``--resource-usage`` log: "small Padded<8>": {...}."""
+    """Max registers and spill bytes of each selection body on each layout
+    (the wide body on each key), from nvcc's ``--resource-usage`` log:
+    "small Padded<8>": {...}, "wide ExactKey": {...}."""
     table, body = {}, None
     for line in log.splitlines():
         m = re.search(r"(?:Function properties for|Compiling entry function)"
@@ -532,6 +560,10 @@ def resource_table(log):
                     "large" if "large_k_kernel" in name else None)
             body = (f"{kind} {lay.group(1)}<{lay.group(2)}>"
                     if kind and lay else None)
+            if "wide_kernel" in name:
+                bits = re.search(r"TruncKeyILi(\d+)E", name)
+                body = (f"wide TruncKey<{bits.group(1)}>" if bits
+                        else "wide ExactKey")
             continue
         if body is None:
             continue
@@ -561,6 +593,193 @@ def tie_order_broken(kidx, self_mode, nr):
         valid = rank < min(nr, k)
     want = torch.where(valid, want, -1)
     return not bool((kidx.long() == want).all())
+
+
+def ring_call(fn, *args, **kwargs):
+    """On a rank of the ring: the launch counts set to 0, ``fn(*args,
+    **kwargs)``, the counts read; returns (result, counts, seconds)."""
+    from mcevidence_tpu_torch.ops import knn_hopper as kh
+    sync = (torch.cuda.synchronize if torch.cuda.is_available()
+            else lambda: None)
+    sync()
+    kh.reset_launch_counts()
+    t0 = time.perf_counter()
+    out = fn(*args, **kwargs)
+    sync()
+    return (out, {n: getattr(kh, n).launches for n in KERNELS},
+            time.perf_counter() - t0)
+
+
+@contextlib.contextmanager
+def no_plain_on_card():
+    """Fail if a CUDA tensor reaches the plain selection meanwhile (the
+    card must answer past the old limits with a kernel)."""
+    from mcevidence_tpu_torch.ops import knn as knn_mod, knn_hopper as kh
+    real = kh.knn_select_torch
+    seen = []
+
+    def guard(query, *args, **kwargs):
+        if query.is_cuda:
+            seen.append(tuple(query.shape))
+        return real(query, *args, **kwargs)
+    kh.knn_select_torch = knn_mod.knn_select_torch = guard
+    try:
+        yield seen
+    finally:
+        kh.knn_select_torch = knn_mod.knn_select_torch = real
+    if seen:
+        raise AssertionError(f"the plain selection ran on the card: {seen}")
+
+
+def free_port():
+    import socket
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        return sock.getsockname()[1]
+
+
+def ring_cells():
+    """The synthetic grid's cells (GRID_MODELS: d = 6/7/7/8, 24000-64000
+    rows), drawn in memory as ``write_grid`` draws them."""
+    rng = np.random.default_rng(20261016)
+    cells = []
+    for _, ndim, n in GRID_MODELS:
+        mean = np.linspace(1.0, 2.0, ndim)
+        sig = np.full(ndim, 0.05)
+        theta = rng.normal(mean, sig, size=(n, ndim))
+        dm = (theta - mean) / sig
+        cells.append((theta, -0.5 * np.sum(dm * dm, axis=1)
+                      - 0.5 * ndim * np.log(2 * np.pi)
+                      - np.sum(np.log(sig))))
+    return cells
+
+
+def ring_phase(total, smi, theta, lnl, one_card, dev="cuda:0"):
+    """Phase 6: the ring on 2 and 4 ranks of one gloo group, each rank a
+    process on the one card (NCCL takes one card a rank).  Every leg runs
+    on all ranks with the counts set to 0 on each, must give the same
+    answer on every rank, within its gate of the one-card answer (refine
+    1e-9, device 1e-8, fast 3e-3), and launch its kernel; then
+    ``dryrun_multichip(4)`` on the card and ``planck --distributed`` on 2
+    ranks against the one-process tables.  The times share one card and
+    its host: no scaling figure."""
+    from mcevidence_tpu_torch import planck
+    from mcevidence_tpu_torch.graft_entry import dryrun_multichip
+    from mcevidence_tpu_torch.parallel import ring
+    from mcevidence_tpu_torch.parallel.launch import RankPool
+    half = theta.shape[0] // 2
+    cells = ring_cells()
+    same_d = [c for c, (_, d, _) in zip(cells, GRID_MODELS) if d == 7]
+    t0 = time.perf_counter()
+    one_grid = {
+        "refine": ring.sharded_grid_evidence_refine(cells, kmax=2,
+                                                    device=dev),
+        "device": ring.sharded_grid_device_refine_evidence(cells, kmax=2,
+                                                           device=dev),
+        "fast": ring.sharded_grid_auto_evidence(same_d, kmax=2, device=dev)}
+    phase("ring_one_card_grid", seconds=time.perf_counter() - t0,
+          cells=[[m, d, n] for m, d, n in GRID_MODELS], gpu=smi)
+    small, batched = "knn_select_small_k", "knn_select_batched"
+    legs = [
+        ("auto refine N=65536 d=8 kmax=5", ring.sharded_auto_evidence,
+         (theta, lnl), dict(kmax=5, precision="refine"), one_card["refine"],
+         1e-9, small),
+        ("auto fast N=65536 d=8 kmax=5", ring.sharded_auto_evidence,
+         (theta, lnl), dict(kmax=5), one_card["fast"], FAST_DLNZ_TOL, small),
+        ("cross refine 32768 x 32768 d=8 kmax=5",
+         ring.sharded_cross_evidence,
+         (theta[:half], lnl[:half], theta[half:]),
+         dict(kmax=5, precision="refine"), one_card["cross"], 1e-9, small),
+        ("auto device N=65536 d=8 kmax=5",
+         ring.sharded_device_refine_evidence, (theta, lnl), dict(kmax=5),
+         one_card["device"], 1e-8, small)]
+    grid_legs = [
+        ("grid refine 2x2, 4 cells d=6-8", ring.sharded_grid_evidence_refine,
+         (cells,), dict(kmax=2, dp=2), one_grid["refine"], 1e-9, batched),
+        ("grid device 2x2, 4 cells d=6-8",
+         ring.sharded_grid_device_refine_evidence, (cells,),
+         dict(kmax=2, dp=2), one_grid["device"], 1e-8, batched),
+        ("grid fast 2x2, 2 cells d=7", ring.sharded_grid_auto_evidence,
+         (same_d,), dict(kmax=2, dp=2), one_grid["fast"], FAST_DLNZ_TOL,
+         batched)]
+    for n_ranks in (2, 4):
+        t0 = time.perf_counter()
+        with RankPool(n_ranks, timeout=600) as pool:
+            # each rank's CUDA context and kernel library, outside the legs
+            pool.run(ring_call, torch.zeros, 1, device=dev)
+            phase("ring_pool", ranks=n_ranks,
+                  start_s=time.perf_counter() - t0, note=RING_NOTE)
+            for label, fn, args, kw, want, tol, kernel in (
+                    legs + (grid_legs if n_ranks == 4 else [])):
+                # twice: the first call also loads each rank's libraries
+                # (cuSOLVER for the fast path's eigh)
+                first = pool.run(ring_call, fn, *args, device=dev, **kw)
+                got = pool.run(ring_call, fn, *args, device=dev, **kw)
+                got = [(g[0], {n: g[1][n] + f[1][n] for n in KERNELS}, g[2],
+                        f[2]) for f, g in zip(first, got)]
+                res = [np.asarray(g[0]) for g in got]
+                counts = {n: sum(g[1][n] for g in got) for n in KERNELS}
+                agree = all(np.array_equal(r, res[0], equal_nan=True)
+                            for r in res)
+                gap = float(np.max(np.abs(res[0] - np.asarray(want))))
+                ok = bool(agree and np.all(np.isfinite(res[0]))
+                          and gap <= tol
+                          and (counts[kernel] > 0 or dev == "cpu"))
+                phase("ring", ranks=n_ranks, leg=label, lnz=res[0].tolist(),
+                      one_card=np.asarray(want).tolist(),
+                      max_abs_dlnz_vs_one_card=gap, tol=tol,
+                      ranks_agree=agree, launches=counts,
+                      first_s=max(g[3] for g in got),
+                      seconds=max(g[2] for g in got), note=RING_NOTE,
+                      gpu=smi, ok=ok)
+                if not ok:
+                    raise AssertionError(f"ring {n_ranks} ranks {label}: "
+                                         f"gap {gap} > {tol}, agree {agree},"
+                                         f" launches {counts}")
+                for n in KERNELS:
+                    total[n] += counts[n]
+    t0 = time.perf_counter()
+    dry = dryrun_multichip(4, device="cpu" if dev == "cpu" else "cuda",
+                           timeout=600)
+    phase("dryrun_multichip", ranks=4, seconds=time.perf_counter() - t0,
+          max_abs_dlnz_vs_one_card=dry["max_abs_dlnz_vs_one_card"],
+          note=RING_NOTE, gpu=smi, ok=True)
+    with tempfile.TemporaryDirectory() as tmp:
+        datasets = planck.DATASETS[:2]
+        grid = os.path.join(tmp, "grid")
+        write_grid(grid, datasets, np.random.default_rng(7))
+        base = ["--rootdir", grid, "-v", "0", "-nd", "2"]
+        one, two = os.path.join(tmp, "one"), os.path.join(tmp, "two")
+        if planck.main(base + ["-o", one, "--device", dev]) != 0:
+            raise AssertionError("planck one process: nonzero exit")
+        env = dict(os.environ, WORLD_SIZE="2", MASTER_ADDR="localhost",
+                   MASTER_PORT=str(free_port()))
+        t0 = time.perf_counter()
+        procs = [subprocess.Popen(
+            [sys.executable, "-m", "mcevidence_tpu_torch.planck", *base,
+             "-o", two, "--device", dev, "--distributed"], cwd=HERE,
+            env=dict(env, RANK=str(r), LOCAL_RANK=str(r)),
+            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+            for r in range(2)]
+        try:
+            outs = [p.communicate(timeout=600) for p in procs]
+        finally:
+            for p in procs:
+                p.kill()
+        wall = time.perf_counter() - t0
+        for r, (p, (_, err)) in enumerate(zip(procs, outs)):
+            if p.returncode != 0:
+                raise AssertionError(f"planck --distributed rank {r}: exit "
+                                     f"{p.returncode}\n{err[-3000:]}")
+        gap = tables_gap("distributed", read_tables(two, "AllChains",
+                                                    datasets),
+                         read_tables(one, "AllChains", datasets), datasets)
+        ok = gap <= 1e-8
+        phase("planck_distributed", ranks=2, datasets=datasets,
+              max_abs_dlnz_vs_one_process=gap, tol=1e-8, wall_s=wall,
+              note=RING_NOTE, gpu=smi, ok=ok)
+        if not ok:
+            raise AssertionError(f"planck --distributed: |dlnZ| {gap}")
 
 
 def main():
@@ -874,8 +1093,71 @@ def main():
                   None, ties=True)
             edges(f"{mode} nr=100 under one tile k={k}", k, self_mode,
                   xe[:100] if self_mode else xe, re_, 100)
+    # the wide kernel (k > 256 or d > 64): 2-D and batched, self and cross,
+    # exact and at 11 and 12 low bits; nr under one of its 256-row tiles and
+    # not a multiple of one; one-point rows in the exact tie order; and
+    # where the two bodies also apply, their bits exactly
+    wide = kh.knn_select_wide
+    xw = x[:16384]
+    legs_wide = [("self N=16384 d=8 k=257", xw, None, 257, None),
+                 ("self N=16384 d=8 k=512", xw, None, 512, None),
+                 ("self N=8192 d=8 k=1024", x[:8192], None, 1024, None),
+                 ("cross Nq=4096 Nr=16384 d=8 k=512", qx[:4096], xw, 512,
+                  None),
+                 ("self nr=100 k=300", x[:100], x[:4096], 300, 100),
+                 ("cross nr=5993 k=300", qx[:2000], xw, 300, 5993),
+                 ("self nr=60000 garbage 1e8 k=264", garbage[:60000],
+                  garbage, 264, 60000)]
+    for d in (65, 100, 128):
+        xd_ = cu(rng.normal(size=(8192, d)))
+        qd_ = cu(rng.normal(size=(2048, d)))
+        for k in (9, 44):
+            legs_wide += [(f"self N=8192 d={d} k={k}", xd_, None, k, None),
+                          (f"cross Nq=2048 Nr=8192 d={d} k={k}", qd_, xd_, k,
+                           None)]
+    for lb in (0, 11, 12):
+        fn = functools.partial(wide, low_bits=lb)
+        for name, q, r, k, nr in legs_wide:
+            if lb and "d=8" not in name and "nr=" not in name:
+                continue
+            self_mode = name.startswith("self")
+            r = q if r is None else r
+            errs["knn_select_wide"].append(compare(
+                f"wide low_bits={lb} {name}", fn, q, r, k, self_mode, nr,
+                "garbage" not in name, low_bits=lb))
+    onew = cu(np.full((1000, 70), 0.5))
+    for self_mode in (True, False):
+        for k in (9, 300):
+            kidx = wide(onew, onew, k, self_mode=self_mode)[1]
+            errs["knn_select_wide"].append(compare(
+                f"wide one point N=1000 d=70 k={k} self={self_mode}", wide,
+                onew, onew, k, self_mode, returned=True))
+            if tie_order_broken(kidx, self_mode, 1000):
+                raise AssertionError(f"wide one point k={k}: tie order")
+    q3w = cu(rng.normal(size=(3, 3000, 8)))
+    for k in (264, 600):
+        for self_mode, nr3, nq3 in ((True, [3000, 2100, 40],
+                                     [3000, 2100, 40]),
+                                    (False, [3000, 1000, 300],
+                                     [2999, 3000, 7])):
+            errs["knn_select_wide"].append(compare_batched(
+                f"wide batched {'self' if self_mode else 'cross'} d=8 k={k} "
+                f"nr={nr3} nq={nq3}", q3w, q3w, k, self_mode, nr3, nq3,
+                kernel=wide, returned=True))
+    qb65 = cu(rng.normal(size=(2, 2048, 65)))
+    errs["knn_select_wide"].append(compare_batched(
+        "wide batched self d=65 k=9 nr=[2048, 1500]", qb65, qb65, 9, True,
+        [2048, 1500], [2048, 1500], kernel=wide, returned=True))
+    for k in (9, 44, 200, 256):
+        same = all(torch.equal(a, b) for a, b in zip(
+            wide(xw, xw, k, self_mode=True),
+            kh.knn_select_cuda(xw, xw, k, self_mode=True)))
+        phase("kernel_vs_body", leg=f"wide vs the two bodies N=16384 d=8 "
+              f"k={k}", identical=same, ok=same)
+        if not same:
+            raise AssertionError(f"wide k={k}: not the bodies' bits")
     del xd, garbage, qx, rx, q8, r8, qd, qq, rr, qc, xs, qs, g7, d3, qd3, xp
-    del xe, re_, one
+    del xe, re_, one, xw, xd_, qd_, onew, q3w, qb65
     torch.cuda.empty_cache()
 
     total = {n: 0 for n in KERNELS}
@@ -1181,6 +1463,37 @@ def main():
     phase("service", requests=[r["id"] for r in reqs],
           child_wall_s=service_s, ok=True)
 
+    # 4h. past the two bodies' limits (k > 256 or d > 64) the card answers
+    # with the wide kernel, never the plain selection: the refine guard's
+    # retry at kmax = 60 (4 (60 + 4) + 8 = 264 candidates), fast at
+    # kmax = 300, and a 65-parameter chain in each precision (device takes
+    # the host refine path past 16 columns, as in JAX)
+    wide_theta, wide_lnl = bench_chain(16384, 65, seed=65)
+    wide_oracles = {60: oracle_evidence(theta, lnl, 60),
+                    300: oracle_evidence(theta, lnl, 300),
+                    "d65": oracle_evidence(wide_theta, wide_lnl, 5)}
+    with Counted("past the limits: kmax 60 / 300, d = 65", total) as c, \
+            no_plain_on_card():
+        t0 = time.perf_counter()
+        k60 = evidence_fn(theta, lnl, kmax=60, device="cuda")
+        k60_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        k300 = evidence_fn(theta, lnl, kmax=300, precision="fast",
+                           device="cuda")
+        k300_s = time.perf_counter() - t0
+        d65 = {prec: evidence_fn(wide_theta, wide_lnl, kmax=5,
+                                 precision=prec, device="cuda")
+               for prec in ("refine", "device", "fast")}
+    c.require("knn_select_wide", "knn_select_large_k")
+    hold_to_oracle("wide_refine_kmax60", k60, wide_oracles[60])
+    hold_to_oracle("wide_fast_kmax300", k300, wide_oracles[300],
+                   FAST_DLNZ_TOL)
+    for prec, got in d65.items():
+        hold_to_oracle(f"wide_d65_{prec}", got, wide_oracles["d65"],
+                       FAST_DLNZ_TOL if prec == "fast" else DLNZ_TOL)
+    phase("wide_paths", refine_kmax60_s=k60_s, fast_kmax300_s=k300_s,
+          plain_selection_on_card=0, gpu=smi, ok=True)
+
     phase("launches", path="main paths, total", **total)
     for name, n in total.items():
         # the prologue study is no user's path: it has its own, in phase 5
@@ -1213,6 +1526,17 @@ def main():
                           f"self N=65536 d={d} k={k} (beside smalld)"))
     timed.append(("knn_select_smalld", smalld, lat_t, 3, 32,
                   "self N=64000 d=3 k=32 (smalld, lattice retry)"))
+    # the wide kernel at the shapes of phase 4h: the refine retry of
+    # kmax = 60, fast at kmax = 300, the d = 65 chain's first pass
+    x65 = cu(wide_theta - wide_theta.mean(0))
+    timed += [("knn_select_wide", kh.knn_select_wide, x, 8, 264,
+               "self N=65536 d=8 k=264 (refine retry of kmax=60)"),
+              ("knn_select_wide", kh.knn_select_wide, x, 8, 300,
+               "self N=65536 d=8 k=300 (fast, kmax=300)"),
+              ("knn_select_large_k", large, x, 8, 256,
+               "self N=65536 d=8 k=256 (beside wide)"),
+              ("knn_select_wide", kh.knn_select_wide, x65, 65, 9,
+               "self N=16384 d=65 k=9 (d=65 chain, first pass)")]
     # the packed selections beside the exact kernels at the refine path's
     # first pass and retry
     for lb, tpu in ((11, "K6"), (12, "K1 forced")):
@@ -1381,6 +1705,12 @@ def main():
               shape="2 datasets x 4 models, d=6/7/7/8, 24000-64000 rows "
                     "per cell in 4 chains", **t, gpu=smi)
 
+    # 6. the ring: 2 and 4 ranks of one gloo group, processes on the one
+    # card, each answer held to the one-card answer of phases 4a-4d
+    ring_phase(total, smi, theta, lnl, {
+        "refine": auto, "device": dev_auto, "fast": fast_auto,
+        "cross": cross})
+
     # each kernel's body (the __global__ function) is in knn_common.cuh; the
     # source beside it instantiates it and holds the C entry point
     csrc = "mcevidence_tpu_torch/csrc/"
@@ -1401,10 +1731,15 @@ def main():
          "also_replaces": f"{pallas}:398 {pallas}:275"},
         {"name": "knn_select_prologue", "entry": csrc + "knn_packed.cu",
          "replaces": "scripts/bench_prologue.py:65"},
+        # its own body: the cover of K2/K4/K6's shapes past the two bodies
+        {"name": "knn_select_wide", "entry": csrc + "knn_wide.cu",
+         "body": csrc + "knn_wide.cu", "replaces": f"{pallas}:892",
+         "also_replaces": f"{pallas}:151 {pallas}:258"},
     ]
     for kern in kernels:
-        kern.update(route="cuda", source=body,
-                    sources=[body, kern.pop("entry")])
+        src = kern.pop("body", body)
+        kern.update(route="cuda", source=src,
+                    sources=sorted({src, body, kern.pop("entry")}))
         nm = kern["name"]
         ms, plain_ms, b_ms, b_by = times[nm]
         # no single PyTorch call selects k nearest neighbours

@@ -9,13 +9,16 @@ refinement and estimator on the host or on the card (or the f32 estimator
 on the card in ``fast`` precision), the Planck grid driver
 (``python -m mcevidence_tpu_torch.planck``), the JSON-lines service
 (``python -m mcevidence_tpu_torch.serve``), the model comparison
-(``python -m mcevidence_tpu_torch.compare``) and the reference's
-``MCSamples`` surface.  It imports torch and numpy, never jax.
+(``python -m mcevidence_tpu_torch.compare``), the reference's
+``MCSamples`` surface, and the ring over ``torch.distributed`` ranks
+(``parallel/ring.py``, ``graft_entry.py``).  It imports torch and numpy,
+never jax.
 
 The API is exported lazily, so that importing the package stays cheap.
 """
 
 from ._version import __version__
+from .registry import COSMO_PARAMS as _COSMO_PARAMS
 
 _EXPORTS = {
     "MCEvidence": "evidence",
@@ -29,7 +32,21 @@ _EXPORTS = {
     "fast_auto_evidence": "ops.pipeline",
     "sharded_grid_device_refine_evidence": "parallel.ring",
     "sharded_grid_auto_evidence": "parallel.ring",
+    "sharded_auto_evidence": "parallel.ring",
+    "sharded_cross_evidence": "parallel.ring",
+    "sharded_device_refine_evidence": "parallel.ring",
+    "load_nested_chains": "chains.nested",
+    "sampler_lnz": "chains.nested",
+    "COSMO_PARAMS": "registry",
+    "extend_cosmo_params": "registry",
+    "iscosmo_param": "registry",
+    "get_prior_volume": "priors.params_info",
+    "params_info": "priors.params_info",
 }
+
+
+# the reference-compatible alias (mcevidence_tpu/__init__.py:23-24)
+cosmo_params_list = list(_COSMO_PARAMS)
 
 
 def __getattr__(name):
@@ -40,4 +57,4 @@ def __getattr__(name):
     raise AttributeError(f"module {__name__!r} has no attribute {name!r}")
 
 
-__all__ = ["__version__", *_EXPORTS]
+__all__ = ["__version__", "cosmo_params_list", *_EXPORTS]

@@ -7,7 +7,9 @@
 //   knn_smalld.cu  Compact<D>: rows of exactly D <= 16 columns; exact keys
 //   knn_packed.cu  Padded<DP>; truncated keys (TruncKey<B>), and the
 //                  prologue-cut small-k body
-// so the sources compile in parallel.
+// so the sources compile in parallel.  knn_wide.cu holds a third, simpler
+// body of its own for the shapes past these bodies' limits (k > 256, or
+// rows wider than 64 columns), on the same keys and the same contract.
 //
 // Shared contract (the same as the TPU kernels they replace), per batch
 // member b = blockIdx.y of a batch of B members laid out back to back:
@@ -134,6 +136,20 @@ struct ExactKey {
     __device__ __forceinline__ unsigned long long operator()(float d2,
                                                              int j) const {
         return make_key(d2, j);
+    }
+};
+
+// the TPU packed kernels' ranking: d2's f32 bits with the low B mantissa
+// bits cleared, above the index (knn_packed.cu, knn_wide.cu)
+template <int B>
+struct TruncKey {
+    static_assert(0 < B && B < 23, "B clears mantissa bits only");
+    __device__ __forceinline__ unsigned long long operator()(float d2,
+                                                             int j) const {
+        constexpr unsigned kKeep = ~((1u << B) - 1u);
+        return (static_cast<unsigned long long>(__float_as_uint(d2) & kKeep)
+                << 32) |
+               static_cast<unsigned>(j);
     }
 };
 

@@ -49,19 +49,7 @@
 namespace {
 
 using knn::Dispatch;
-
-// d2's f32 bits with the low B mantissa bits cleared, above the index
-template <int B>
-struct TruncKey {
-    static_assert(0 < B && B < 23, "B clears mantissa bits only");
-    __device__ __forceinline__ unsigned long long operator()(float d2,
-                                                             int j) const {
-        constexpr unsigned kKeep = ~((1u << B) - 1u);
-        return (static_cast<unsigned long long>(__float_as_uint(d2) & kKeep)
-                << 32) |
-               static_cast<unsigned>(j);
-    }
-};
+using knn::TruncKey;
 
 Dispatch packed_body(int dp, int low_bits, bool large) {
     switch (low_bits) {

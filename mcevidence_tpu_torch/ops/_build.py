@@ -10,15 +10,18 @@ linked into one shared library with a plain C interface:
 
 The file name carries a hash of the sources, the headers (``csrc/*.cuh``)
 and the flags, so an edited source is rebuilt and a stale library is never
-loaded.  The linker writes to a name of its own and ``os.replace`` publishes
-the result, so concurrent processes never load a half-written library.  A
-missing ``nvcc`` or a failed build raises with nvcc's output; nothing falls
-back.
+loaded.  A build holds a file lock beside the library (``<library>.lock``),
+so processes that start together (the ranks of a ring) wait for one nvcc
+run instead of each running their own; the linker writes to a name of its
+own and ``os.replace`` publishes the result, so no process loads a
+half-written library.  A missing ``nvcc`` or a failed build raises with
+nvcc's output; nothing falls back.
 """
 
 from __future__ import annotations
 
 import ctypes
+import fcntl
 import glob
 import hashlib
 import os
@@ -43,6 +46,9 @@ ENTRY_POINTS = ("knn_select_small_k", "knn_select_large_k",
 # the packed selections, the ``cuts`` of the prologue study
 ENTRY_POINTS_EXTRA = ("knn_select_packed_small_k",
                       "knn_select_packed_large_k", "knn_select_prologue")
+# C entry points that take, after ``device``: low_bits, kp, warps, row0,
+# row1 and a workspace pointer (csrc/knn_wide.cu)
+ENTRY_POINTS_WIDE = ("knn_select_wide",)
 
 _lock = threading.Lock()
 _lib = None
@@ -98,12 +104,28 @@ def build() -> str:
     """Compile the sources unless the library for them exists; returns its
     path.  The compiler's output (``--resource-usage``: registers, shared
     memory, spills per kernel) is kept in ``build_log``, each source's
-    compile time in ``source_seconds``."""
-    global build_seconds, build_log
+    compile time in ``source_seconds``.  A process that finds another one
+    building waits on the lock, then takes the library it built."""
     out = library_path()
     if os.path.exists(out):
         return out
     os.makedirs(BUILD_DIR, exist_ok=True)
+    lock = f"{out}.lock"
+    with open(lock, "a") as fh:
+        fcntl.flock(fh, fcntl.LOCK_EX)
+        try:
+            if not os.path.exists(out):
+                _build_locked(out)
+        finally:
+            # a process still waiting on this file finds the library when it
+            # gets the lock; one arriving later finds it before locking
+            if os.path.exists(lock):
+                os.remove(lock)
+    return out
+
+
+def _build_locked(out: str) -> None:
+    global build_seconds, build_log
     tag = f"{os.getpid()}-{threading.get_ident()}"
     tmp = f"{out}.{tag}.tmp"
     nvcc = find_nvcc()
@@ -131,7 +153,6 @@ def build() -> str:
     source_seconds.clear()
     source_seconds.update({j["src"]: j["seconds"] for j in jobs})
     build_log = "".join(j["output"] for j in jobs)
-    return out
 
 
 def _declare(lib):
@@ -139,7 +160,8 @@ def _declare(lib):
     args = [ptr, ptr, i32, i32, i32, ptr, ptr, i32, i32, i32, i32, ptr, ptr,
             ptr, i32]
     for names, argtypes in ((ENTRY_POINTS, args),
-                            (ENTRY_POINTS_EXTRA, args + [i32])):
+                            (ENTRY_POINTS_EXTRA, args + [i32]),
+                            (ENTRY_POINTS_WIDE, args + [i32] * 5 + [ptr])):
         for name in names:
             fn = getattr(lib, name)
             fn.argtypes = argtypes

@@ -17,8 +17,9 @@ on each path (``selector``):
 
 * ``"auto"``, ``"cuda"`` (alias ``"pallas"``) and ``"pallas_exact"``: the
   exact k-dependent kernel dispatch, small-k kernel below 14 candidates and
-  large-k kernel from there (``pallas_exact`` is K4's forced engine in the
-  JAX package; every kernel here is exact, so it takes the same dispatch).
+  large-k kernel from there, the wide kernel past 256 candidates or 64
+  columns (``pallas_exact`` is K4's forced engine in the JAX package; every
+  kernel here is exact, so it takes the same dispatch).
   On a CPU device the kernel wrappers run their plain version.
 * ``"pallas_smalld"``: the small-d kernel (K8/K9's counterpart) where the
   JAX package runs it, refine consumers with d <= 16; wider inputs take the

@@ -27,9 +27,20 @@ the ``pallas_smalld`` engine) wraps those of ``csrc/knn_smalld.cu``, which
 sweep only the d <= 16 true coordinates of an unpadded layout;
 ``knn_select_packed`` (K6/K7, and K1 as a forced engine) and
 ``knn_select_prologue`` (the prologue study S1) wrap those of
-``csrc/knn_packed.cu``.  A wrapper given CPU tensors returns the plain
-version; given CUDA tensors it launches its kernel or raises.  Each wrapper
-counts its launches in ``<wrapper>.launches``.
+``csrc/knn_packed.cu``.  ``knn_select_wide`` wraps the kernel of
+``csrc/knn_wide.cu``: one exact (or truncated-key) selection for any k and
+any width, where every other wrapper routes its inputs past the two bodies'
+limits (k > ``LARGE_K_MAX`` candidates, or d > ``D_MAX`` columns), so the
+card answers every shape the JAX package answers.  A wrapper given CPU
+tensors returns the plain version; given CUDA tensors it launches its
+kernel or raises.  Each wrapper counts its launches in
+``<wrapper>.launches``.
+
+Every selection centres the rows on the reference rows' masked mean in f32
+before it selects, unless it is given ``center=False``: then it takes the
+rows as they are, which a caller that has centred a whole chain in f64
+uses so that every piece of the chain (a ring's shards) sees the same f32
+coordinates.
 
 The exact kernels return exact f32 sums of squared differences as their d2,
 so the exact dispatch (``knn_select_cuda``) is also the counterpart of K4,
@@ -46,7 +57,8 @@ from typing import Optional, Sequence, Tuple, Union
 
 import torch
 
-# limits of the hand-written kernels (csrc/knn_select.cu, csrc/knn_smalld.cu)
+# limits of the two bodies of csrc/knn_common.cuh (knn_select.cu,
+# knn_smalld.cu, knn_packed.cu); past them the wrappers take knn_wide.cu
 D_MAX = 64
 SMALLD_MAX = 16
 SMALL_K_MAX = 16
@@ -89,7 +101,7 @@ def _truncated_keys(d2: torch.Tensor, low_bits: int) -> torch.Tensor:
 
 def knn_select_torch(query: torch.Tensor, ref: torch.Tensor, k: int, *,
                      self_mode: bool = False, nr: Optional[int] = None,
-                     low_bits: int = 0
+                     low_bits: int = 0, center: bool = True
                      ) -> Tuple[torch.Tensor, torch.Tensor]:
     """kNN selection in plain PyTorch, in the inputs' dtype.
 
@@ -112,9 +124,11 @@ def knn_select_torch(query: torch.Tensor, ref: torch.Tensor, k: int, *,
     idx_out = torch.full((nq, k), -1, dtype=torch.int32, device=dev)
     if nq == 0 or k == 0:
         return d2_out, idx_out
-    mu = _masked_mean(ref, nr)
-    q = query - mu
-    r = ref[:nr] - mu
+    if center:
+        mu = _masked_mean(ref, nr)
+        q, r = query - mu, ref[:nr] - mu
+    else:
+        q, r = query, ref[:nr]
     first = 0
     if self_mode:
         d2_out[:, 0] = 0.0
@@ -166,7 +180,8 @@ def _member_counts(counts: Counts, batch: int, alloc: int,
 
 def knn_select_torch_batched(query: torch.Tensor, ref: torch.Tensor, k: int,
                              *, self_mode: bool = False, nr: Counts = None,
-                             nq: Counts = None, low_bits: int = 0
+                             nq: Counts = None, low_bits: int = 0,
+                             center: bool = True
                              ) -> Tuple[torch.Tensor, torch.Tensor]:
     """The batched selection in plain PyTorch: ``knn_select_torch`` (with
     ``low_bits``) on each member's first ``nq[b]`` query rows against its
@@ -184,7 +199,7 @@ def knn_select_torch_batched(query: torch.Tensor, ref: torch.Tensor, k: int,
     for b in range(bsz):
         d2[b, :nq_b[b]], idx[b, :nq_b[b]] = knn_select_torch(
             query[b, :nq_b[b]], ref[b], k, self_mode=self_mode, nr=nr_b[b],
-            low_bits=low_bits)
+            low_bits=low_bits, center=center)
     return d2, idx
 
 
@@ -213,17 +228,25 @@ def _check_batched(query: torch.Tensor, ref: torch.Tensor,
 
 
 def _padded_width(d: int) -> int:
+    """The ``Padded`` width of d columns (8, 16, 32 or 64); raises past
+    ``D_MAX`` (the dispatch sends such rows to ``knn_select_wide`` first)."""
     for dp in (8, 16, 32, 64):
         if d <= dp:
             return dp
-    raise ValueError(f"the CUDA kNN kernels take d <= {D_MAX}, got d={d}")
+    raise ValueError(f"the Padded layouts take d <= {D_MAX}, got d={d}")
+
+
+def _past_limits(d: int, k: int) -> bool:
+    """Whether d columns or k candidates lie past the two bodies' limits."""
+    return d > D_MAX or k > LARGE_K_MAX
 
 
 def _call(entry: str, q, r, d2, idx, *, batch, q_rows, r_rows, nq_dev,
-          nr_dev, nr_all, dp, k, self_mode, extra=None) -> None:
+          nr_dev, nr_all, dp, k, self_mode, extra=()) -> None:
     """Call one C entry point of ``csrc/`` on the current stream (``dp``:
-    the rows' width as laid out, padded or not; ``extra``: the last int of
-    an ``ENTRY_POINTS_EXTRA`` entry); raises on a non-zero cudaError_t."""
+    the rows' width as laid out, padded or not; ``extra``: the arguments an
+    entry point of ``ENTRY_POINTS_EXTRA`` or ``ENTRY_POINTS_WIDE`` takes
+    after ``device``); raises on a non-zero cudaError_t."""
     from . import _build
     dev = q.device
     lib = _build.load()
@@ -232,16 +255,53 @@ def _call(entry: str, q, r, d2, idx, *, batch, q_rows, r_rows, nq_dev,
             None if nr_dev is None else nr_dev.data_ptr(), nr_all, dp, k,
             int(self_mode), d2.data_ptr(), idx.data_ptr(),
             torch.cuda.current_stream(dev).cuda_stream, dev.index or 0]
-    if extra is not None:
-        args.append(int(extra))
-    code = getattr(lib, entry)(*args)
+    code = getattr(lib, entry)(*args, *extra)
     _build.check(lib, code, entry)
 
 
-def _launch(entry: str, query, ref, k, self_mode, nr, dp=None, extra=None):
-    """Centre (masked mean, f32), pad d to the kernel width ``dp`` (default
-    the next of 8/16/32/64), allocate the outputs and launch the kernel as a
-    batch of one member."""
+def _centred(query, ref, nr, dp, self_mode, center):
+    """f32 query (Nq, dp) and reference (nr, dp) rows, each centred on the
+    reference rows' masked mean when ``center`` and zero-padded from d to
+    ``dp`` columns."""
+    nq, d = query.shape
+    dev = query.device
+    mu = _masked_mean(ref.to(torch.float32), nr) if center else 0.0
+    q = torch.zeros((nq, dp), dtype=torch.float32, device=dev)
+    q[:, :d] = query.to(torch.float32) - mu
+    if self_mode and ref is query:
+        return q, q
+    r = torch.zeros((nr, dp), dtype=torch.float32, device=dev)
+    r[:, :d] = ref[:nr].to(torch.float32) - mu
+    return q, r
+
+
+def _centred_batched(query, ref, nr_dev, dp, self_mode, center):
+    """``_centred`` per member of (B, N, d) rows, each on its own masked
+    mean: rows at or past nr[b] may hold anything, so they are selected out,
+    not multiplied by zero."""
+    d = query.shape[2]
+    dev = query.device
+    ref32 = ref.to(torch.float32)
+    mu = 0.0
+    if center:
+        ok = (torch.arange(ref.shape[1], device=dev)[None, :]
+              < nr_dev[:, None])
+        mu = (torch.where(ok[..., None], ref32, 0.0).sum(dim=1)
+              / nr_dev.clamp(min=1)[:, None].to(torch.float32))[:, None, :]
+    q = torch.zeros(query.shape[:2] + (dp,), dtype=torch.float32, device=dev)
+    q[..., :d] = query.to(torch.float32) - mu
+    if self_mode and ref is query:
+        return q, q
+    r = torch.zeros(ref.shape[:2] + (dp,), dtype=torch.float32, device=dev)
+    r[..., :d] = ref32 - mu
+    return q, r
+
+
+def _launch(entry: str, query, ref, k, self_mode, nr, dp=None, extra=(),
+            center=True):
+    """Centre (unless ``center`` is False), pad d to the kernel width ``dp``
+    (default the next of 8/16/32/64), allocate the outputs and launch the
+    kernel as a batch of one member."""
     nq, d = query.shape
     dp = _padded_width(d) if dp is None else dp
     nr = _valid_count(ref, nr)
@@ -249,14 +309,7 @@ def _launch(entry: str, query, ref, k, self_mode, nr, dp=None, extra=None):
     if self_mode and nq > ref.shape[0]:
         raise ValueError("self mode needs every query row to be a ref row")
     dev = query.device
-    mu = _masked_mean(ref.to(torch.float32), nr)
-    q = torch.zeros((nq, dp), dtype=torch.float32, device=dev)
-    q[:, :d] = query.to(torch.float32) - mu
-    if self_mode and ref is query:
-        r = q
-    else:
-        r = torch.zeros((nr, dp), dtype=torch.float32, device=dev)
-        r[:, :d] = ref[:nr].to(torch.float32) - mu
+    q, r = _centred(query, ref, nr, dp, self_mode, center)
     d2 = torch.empty((nq, k), dtype=torch.float32, device=dev)
     idx = torch.empty((nq, k), dtype=torch.int32, device=dev)
     if nq == 0 or k == 0:
@@ -268,54 +321,66 @@ def _launch(entry: str, query, ref, k, self_mode, nr, dp=None, extra=None):
 
 
 def knn_select_small_k(query: torch.Tensor, ref: torch.Tensor, k: int, *,
-                       self_mode: bool = False, nr: Optional[int] = None
+                       self_mode: bool = False, nr: Optional[int] = None,
+                       center: bool = True
                        ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Small-k selection (k <= 16): the counterpart of the TPU kernel K1
-    (``knn_select_pallas_packed2``).  One thread per query row, sorted
-    top-k in registers; exact."""
+    (``knn_select_pallas_packed2``).  The small-k body of
+    ``csrc/knn_common.cuh``: each thread holds its query rows' sorted top-k
+    in registers, two threads share a query row, four tile rows are
+    screened by one compare; exact.  Rows wider than ``D_MAX`` take
+    ``knn_select_wide``."""
     _check_inputs(query, ref)
     if query.device.type == "cpu":
-        return knn_select_torch(query, ref, k, self_mode=self_mode, nr=nr)
+        return knn_select_torch(query, ref, k, self_mode=self_mode, nr=nr,
+                                center=center)
     if min(k, ref.shape[0]) > SMALL_K_MAX:
         raise ValueError(f"knn_select_small_k takes k <= {SMALL_K_MAX}, "
                          f"got k={k}")
+    if _past_limits(query.shape[1], k):
+        return knn_select_wide(query, ref, k, self_mode=self_mode, nr=nr,
+                               center=center)
     d2, idx, launched = _launch("knn_select_small_k", query, ref, k,
-                                self_mode, nr)
+                                self_mode, nr, center=center)
     knn_select_small_k.launches += launched
     return d2, idx
 
 
 def knn_select_large_k(query: torch.Tensor, ref: torch.Tensor, k: int, *,
-                       self_mode: bool = False, nr: Optional[int] = None
+                       self_mode: bool = False, nr: Optional[int] = None,
+                       center: bool = True
                        ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Large-k selection (k <= 256): the counterpart of the TPU kernels K2
-    and K3 (``knn_select_pallas_binned``).  One warp per query row, a
-    depth-k sorted list per lane in shared memory, a shuffle merge; exact,
-    with no cap on the reference rows."""
+    """Large-k selection: the counterpart of the TPU kernels K2 and K3
+    (``knn_select_pallas_binned``).  The large-k body of
+    ``csrc/knn_common.cuh`` up to k = ``LARGE_K_MAX``: WarpSelect, a warp
+    queue of the k smallest keys sorted across a warp's registers, short
+    thread queues merged by bitonic shuffle networks; exact, with no cap on
+    the reference rows.  More candidates, or rows wider than ``D_MAX``,
+    take ``knn_select_wide``."""
     _check_inputs(query, ref)
     if query.device.type == "cpu":
-        return knn_select_torch(query, ref, k, self_mode=self_mode, nr=nr)
-    if min(k, ref.shape[0]) > LARGE_K_MAX:
-        raise ValueError(f"knn_select_large_k takes k <= {LARGE_K_MAX}, "
-                         f"got k={k}")
+        return knn_select_torch(query, ref, k, self_mode=self_mode, nr=nr,
+                                center=center)
+    if _past_limits(query.shape[1], min(k, ref.shape[0])):
+        return knn_select_wide(query, ref, k, self_mode=self_mode, nr=nr,
+                               center=center)
     d2, idx, launched = _launch("knn_select_large_k", query, ref, k,
-                                self_mode, nr)
+                                self_mode, nr, center=center)
     knn_select_large_k.launches += launched
     return d2, idx
 
 
 def _launch_batched(small_entry: str, large_entry: str, query, ref, k,
-                    self_mode, nr, nq, dp, extra=None):
-    """Centre each member on its masked mean (f32), pad d to ``dp``, and
-    launch the small-k body below ``LARGE_K_FROM`` candidates and the
-    large-k body from there, once over the whole batch, with the per-member
-    counts in int32 arrays on the card."""
-    bsz, nq_alloc, d = query.shape
+                    self_mode, nr, nq, dp, extra=(), center=True):
+    """Centre each member on its masked mean (f32, unless ``center`` is
+    False), pad d to ``dp``, and launch the small-k body below
+    ``LARGE_K_FROM`` candidates and the large-k body from there (k <=
+    ``LARGE_K_MAX``: the wrappers send more to ``knn_select_wide``), once
+    over the whole batch, with the per-member counts in int32 arrays on the
+    card."""
+    bsz, nq_alloc, _ = query.shape
     nr_alloc = ref.shape[1]
     k = min(k, nr_alloc)
-    if k > LARGE_K_MAX:
-        raise ValueError(f"the batched kernels take k <= {LARGE_K_MAX}, "
-                         f"got k={k}")
     nr_b = _member_counts(nr, bsz, nr_alloc, "nr")
     nq_b = _member_counts(nq, bsz, nq_alloc, "nq")
     dev = query.device
@@ -325,19 +390,7 @@ def _launch_batched(small_entry: str, large_entry: str, query, ref, k,
         return d2, idx, False
     nr_dev = torch.tensor(nr_b, dtype=torch.int32, device=dev)
     nq_dev = torch.tensor(nq_b, dtype=torch.int32, device=dev)
-    # per-member masked mean (``_mu_masked``): rows at or past nr[b] may hold
-    # anything, so they are selected out, not multiplied by zero
-    ref32 = ref.to(torch.float32)
-    ok = (torch.arange(nr_alloc, device=dev)[None, :] < nr_dev[:, None])
-    mu = (torch.where(ok[..., None], ref32, 0.0).sum(dim=1)
-          / nr_dev.clamp(min=1)[:, None].to(torch.float32))[:, None, :]
-    q = torch.zeros((bsz, nq_alloc, dp), dtype=torch.float32, device=dev)
-    q[..., :d] = query.to(torch.float32) - mu
-    if self_mode and ref is query:
-        r = q
-    else:
-        r = torch.zeros((bsz, nr_alloc, dp), dtype=torch.float32, device=dev)
-        r[..., :d] = ref32 - mu
+    q, r = _centred_batched(query, ref, nr_dev, dp, self_mode, center)
     entry = large_entry if k >= LARGE_K_FROM else small_entry
     _call(entry, q, r, d2, idx, batch=bsz, q_rows=nq_alloc, r_rows=nr_alloc,
           nq_dev=nq_dev, nr_dev=nr_dev, nr_all=nr_alloc, dp=dp, k=k,
@@ -347,7 +400,7 @@ def _launch_batched(small_entry: str, large_entry: str, query, ref, k,
 
 def knn_select_batched(query: torch.Tensor, ref: torch.Tensor, k: int, *,
                        self_mode: bool = False, nr: Counts = None,
-                       nq: Counts = None
+                       nq: Counts = None, center: bool = True
                        ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Batched selection, the counterpart of the TPU kernel K5
     (``knn_select_pallas_packed2_batched``): one launch over query
@@ -355,22 +408,26 @@ def knn_select_batched(query: torch.Tensor, ref: torch.Tensor, k: int, *,
     (sequences of B ints; default Nr and Nq).  The small-k kernel body runs
     below ``LARGE_K_FROM`` candidates and the large-k body from there, each
     with the batch member on the grid's y axis and the counts read from
-    int32 arrays on the card.  Returns (B, Nq, k) d2 and idx; k above
-    ``LARGE_K_MAX`` raises on the card."""
+    int32 arrays on the card; past ``LARGE_K_MAX`` candidates or ``D_MAX``
+    columns, ``knn_select_wide``'s batched form.  Returns (B, Nq, k) d2 and
+    idx."""
     _check_batched(query, ref, self_mode)
     if query.device.type == "cpu":
         return knn_select_torch_batched(query, ref, k, self_mode=self_mode,
-                                        nr=nr, nq=nq)
+                                        nr=nr, nq=nq, center=center)
+    if _past_limits(query.shape[2], min(k, ref.shape[1])):
+        return knn_select_wide(query, ref, k, self_mode=self_mode, nr=nr,
+                               nq=nq, center=center)
     d2, idx, launched = _launch_batched(
         "knn_select_small_k", "knn_select_large_k", query, ref, k, self_mode,
-        nr, nq, _padded_width(query.shape[2]))
+        nr, nq, _padded_width(query.shape[2]), center=center)
     knn_select_batched.launches += launched
     return d2, idx
 
 
 def knn_select_smalld(query: torch.Tensor, ref: torch.Tensor, k: int, *,
                       self_mode: bool = False, nr: Counts = None,
-                      nq: Counts = None
+                      nq: Counts = None, center: bool = True
                       ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Small-d selection, the counterpart of the TPU kernels K8
     (``knn_select_pallas_smalld``) and K9
@@ -382,8 +439,9 @@ def knn_select_smalld(query: torch.Tensor, ref: torch.Tensor, k: int, *,
     it sums exactly d squared differences per pair (every coordinate it is
     given: a batch of mixed widths sweeps its widest).  The small-k body
     runs below ``LARGE_K_FROM`` candidates and the large-k body from there
-    up to ``LARGE_K_MAX``.  Exact, so it meets K8's and K9's <= 2^-12
-    quantisation contract."""
+    up to ``LARGE_K_MAX``; more candidates take ``knn_select_wide``, which
+    also sweeps the d true coordinates.  Exact, so it meets K8's and K9's
+    <= 2^-12 quantisation contract."""
     batched = query.dim() == 3
     if batched:
         _check_batched(query, ref, self_mode)
@@ -394,31 +452,34 @@ def knn_select_smalld(query: torch.Tensor, ref: torch.Tensor, k: int, *,
     if query.device.type == "cpu":
         if batched:
             return knn_select_torch_batched(query, ref, k,
-                                            self_mode=self_mode, nr=nr, nq=nq)
-        return knn_select_torch(query, ref, k, self_mode=self_mode, nr=nr)
+                                            self_mode=self_mode, nr=nr, nq=nq,
+                                            center=center)
+        return knn_select_torch(query, ref, k, self_mode=self_mode, nr=nr,
+                                center=center)
     d = query.shape[-1]
     if not 1 <= d <= SMALLD_MAX:
         raise ValueError(f"knn_select_smalld takes 1 <= d <= {SMALLD_MAX}, "
                          f"got d={d}")
+    if min(k, ref.shape[-2]) > LARGE_K_MAX:
+        return knn_select_wide(query, ref, k, self_mode=self_mode, nr=nr,
+                               nq=nq, center=center)
     if batched:
         d2, idx, launched = _launch_batched(
             "knn_select_smalld_small_k", "knn_select_smalld_large_k", query,
-            ref, k, self_mode, nr, nq, d)
+            ref, k, self_mode, nr, nq, d, center=center)
     else:
-        if min(k, ref.shape[0]) > LARGE_K_MAX:
-            raise ValueError(f"knn_select_smalld takes k <= {LARGE_K_MAX}, "
-                             f"got k={k}")
         entry = ("knn_select_smalld_large_k" if k >= LARGE_K_FROM
                  else "knn_select_smalld_small_k")
         d2, idx, launched = _launch(entry, query, ref, k, self_mode, nr,
-                                    dp=d)
+                                    dp=d, center=center)
     knn_select_smalld.launches += launched
     return d2, idx
 
 
 def knn_select_packed(query: torch.Tensor, ref: torch.Tensor, k: int, *,
                       low_bits: int = 11, self_mode: bool = False,
-                      nr: Counts = None, nq: Counts = None
+                      nr: Counts = None, nq: Counts = None,
+                      center: bool = True
                       ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Packed selection: the counterpart of the TPU kernels K6
     (``knn_select_pallas_packed``) and K7
@@ -431,7 +492,8 @@ def knn_select_packed(query: torch.Tensor, ref: torch.Tensor, k: int, *,
     cleared, ties by the smaller index, and returns that truncated d2 (at
     most 2^(low_bits - 23) below the exact value), as the TPU kernels do.
     The small-k body runs below ``LARGE_K_FROM`` candidates and the large-k
-    body from there up to ``LARGE_K_MAX``."""
+    body from there up to ``LARGE_K_MAX``; more candidates, or rows wider
+    than ``D_MAX``, take ``knn_select_wide`` with the same truncation."""
     if low_bits not in PACKED_LOW_BITS:
         raise ValueError(f"low_bits must be one of {PACKED_LOW_BITS}, got "
                          f"{low_bits}")
@@ -446,23 +508,134 @@ def knn_select_packed(query: torch.Tensor, ref: torch.Tensor, k: int, *,
         if batched:
             return knn_select_torch_batched(query, ref, k,
                                             self_mode=self_mode, nr=nr, nq=nq,
-                                            low_bits=low_bits)
+                                            low_bits=low_bits, center=center)
         return knn_select_torch(query, ref, k, self_mode=self_mode, nr=nr,
-                                low_bits=low_bits)
+                                low_bits=low_bits, center=center)
+    if _past_limits(query.shape[-1], min(k, ref.shape[-2])):
+        return knn_select_wide(query, ref, k, self_mode=self_mode, nr=nr,
+                               nq=nq, low_bits=low_bits, center=center)
     if batched:
         d2, idx, launched = _launch_batched(
             "knn_select_packed_small_k", "knn_select_packed_large_k", query,
             ref, k, self_mode, nr, nq, _padded_width(query.shape[2]),
-            extra=low_bits)
+            extra=(low_bits,), center=center)
     else:
-        if min(k, ref.shape[0]) > LARGE_K_MAX:
-            raise ValueError(f"knn_select_packed takes k <= {LARGE_K_MAX}, "
-                             f"got k={k}")
         entry = ("knn_select_packed_large_k" if k >= LARGE_K_FROM
                  else "knn_select_packed_small_k")
         d2, idx, launched = _launch(entry, query, ref, k, self_mode, nr,
-                                    extra=low_bits)
+                                    extra=(low_bits,), center=center)
     knn_select_packed.launches += launched
+    return d2, idx
+
+
+# the wide kernel's layout (csrc/knn_wide.cu): kWideMinKeys, the block's
+# warps, the floats of its shared tile and query chunk, and the shared
+# memory a block may take
+WIDE_MIN_KEYS = 64
+WIDE_WARPS = 8
+_WIDE_TILE_FLOATS = 32 * (256 + 1)
+_WIDE_SHARED_MAX = 227 * 1024
+# bytes of the global lists one launch may use when they leave shared memory
+_WIDE_WORKSPACE_BYTES = 1 << 28
+
+
+def _wide_shared_bytes(kp: int, warps: int, global_keys: bool) -> int:
+    keys = 0 if global_keys else warps * 2 * kp * 8
+    return keys + (_WIDE_TILE_FLOATS + warps * 32) * 4
+
+
+def wide_plan(keep: int) -> Tuple[int, int, bool]:
+    """(kp, warps, workspace) of the wide kernel for ``keep`` kept keys a
+    query row: kp is ``keep`` rounded up to a power of two (at least
+    ``WIDE_MIN_KEYS``); ``WIDE_WARPS`` query rows a block, fewer when their
+    lists of 2 kp keys would not fit beside the tile; and whether the lists
+    go to a global workspace (past 8192 keys a row)."""
+    kp = WIDE_MIN_KEYS
+    while kp < keep:
+        kp *= 2
+    warps = WIDE_WARPS
+    while warps > 1 and _wide_shared_bytes(kp, warps, False) > _WIDE_SHARED_MAX:
+        warps //= 2
+    if _wide_shared_bytes(kp, warps, False) <= _WIDE_SHARED_MAX:
+        return kp, warps, False
+    return kp, WIDE_WARPS, True
+
+
+def knn_select_wide(query: torch.Tensor, ref: torch.Tensor, k: int, *,
+                    self_mode: bool = False, nr: Counts = None,
+                    nq: Counts = None, low_bits: int = 0,
+                    center: bool = True
+                    ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Wide selection, the kernel of ``csrc/knn_wide.cu``: any k and any
+    width d, 2-D (query (Nq, d), ref (Nr, d), host count ``nr``) or batched
+    ((B, Nq, d), (B, Nr, d), per-member ``nr`` and ``nq``), on rows of
+    exactly d columns.  ``low_bits`` 0 ranks exactly; 11 or 12 rank by the
+    packed selections' truncated keys and return the truncated d2.  One
+    warp a query row keeps its k smallest keys in a sorted list fed by a
+    buffer of candidates under the k-th key; lists past 8192 keys live in a
+    global workspace, with the query rows launched in chunks that keep it
+    within ``_WIDE_WORKSPACE_BYTES``.  Its plain version is
+    ``knn_select_torch`` / ``knn_select_torch_batched`` with the same
+    ``low_bits``."""
+    if low_bits not in (0,) + PACKED_LOW_BITS:
+        raise ValueError(f"low_bits must be 0 or one of {PACKED_LOW_BITS}, "
+                         f"got {low_bits}")
+    batched = query.dim() == 3
+    if batched:
+        _check_batched(query, ref, self_mode)
+    else:
+        _check_inputs(query, ref)
+        if nq is not None:
+            raise ValueError("nq is a per-member count of the batched form")
+        if self_mode and query.shape[0] > ref.shape[0]:
+            raise ValueError("self mode needs every query row to be a ref "
+                             "row")
+    if query.device.type == "cpu":
+        if batched:
+            return knn_select_torch_batched(query, ref, k,
+                                            self_mode=self_mode, nr=nr, nq=nq,
+                                            low_bits=low_bits, center=center)
+        return knn_select_torch(query, ref, k, self_mode=self_mode, nr=nr,
+                                low_bits=low_bits, center=center)
+    dev = query.device
+    d = query.shape[-1]
+    if batched:
+        bsz, nq_alloc, _ = query.shape
+        nr_alloc = ref.shape[1]
+        nr_b = _member_counts(nr, bsz, nr_alloc, "nr")
+        nq_b = _member_counts(nq, bsz, nq_alloc, "nq")
+        nr_dev = torch.tensor(nr_b, dtype=torch.int32, device=dev)
+        nq_dev = torch.tensor(nq_b, dtype=torch.int32, device=dev)
+        q, r = _centred_batched(query, ref, nr_dev, d, self_mode, center)
+        r_rows = nr_all = nr_alloc
+    else:
+        bsz, nq_alloc = 1, query.shape[0]
+        nr_alloc = ref.shape[0]
+        nr_all = _valid_count(ref, nr)
+        nq_dev = nr_dev = None
+        q, r = _centred(query, ref, nr_all, d, self_mode, center)
+        r_rows = nr_all
+    k = min(k, nr_alloc)
+    shape = (bsz, nq_alloc, k) if batched else (nq_alloc, k)
+    d2 = torch.empty(shape, dtype=torch.float32, device=dev)
+    idx = torch.empty(shape, dtype=torch.int32, device=dev)
+    if bsz == 0 or nq_alloc == 0 or k == 0:
+        return d2, idx
+    kp, warps, global_keys = wide_plan(max(k - int(self_mode), 1))
+    chunk, work = nq_alloc, None
+    if global_keys:
+        chunk = max(warps, _WIDE_WORKSPACE_BYTES // (bsz * 16 * kp)
+                    // warps * warps)
+        work = torch.empty((bsz, min(chunk, nq_alloc), 2 * kp),
+                           dtype=torch.int64, device=dev)
+    for row0 in range(0, nq_alloc, chunk):
+        row1 = min(nq_alloc, row0 + chunk)
+        _call("knn_select_wide", q, r, d2, idx, batch=bsz, q_rows=nq_alloc,
+              r_rows=r_rows, nq_dev=nq_dev, nr_dev=nr_dev, nr_all=nr_all,
+              dp=d, k=k, self_mode=self_mode,
+              extra=(low_bits, kp, warps, row0, row1,
+                     None if work is None else work.data_ptr()))
+        knn_select_wide.launches += 1
     return d2, idx
 
 
@@ -529,26 +702,29 @@ def knn_select_prologue(query: torch.Tensor, ref: torch.Tensor, k: int, *,
         return d2, idx
     _call("knn_select_prologue", q, r, d2, idx, batch=1, q_rows=nq,
           r_rows=nr_pad, nq_dev=None, nr_dev=None, nr_all=nr_pad, dp=dp, k=k,
-          self_mode=self_mode, extra=PROLOGUE_CUTS[variant])
+          self_mode=self_mode, extra=(PROLOGUE_CUTS[variant],))
     knn_select_prologue.launches += 1
     return d2, idx
 
 
 KERNEL_WRAPPERS = (knn_select_small_k, knn_select_large_k, knn_select_batched,
-                   knn_select_smalld, knn_select_packed, knn_select_prologue)
+                   knn_select_smalld, knn_select_packed, knn_select_prologue,
+                   knn_select_wide)
 for _wrapper in KERNEL_WRAPPERS:
     _wrapper.launches = 0
 
 
 def knn_select_cuda(query: torch.Tensor, ref: torch.Tensor, k: int, *,
-                    self_mode: bool = False, nr: Optional[int] = None
+                    self_mode: bool = False, nr: Optional[int] = None,
+                    center: bool = True
                     ) -> Tuple[torch.Tensor, torch.Tensor]:
     """The exact k-dependent dispatch: small-k kernel below
-    ``LARGE_K_FROM`` candidates, large-k kernel from there.  The selection
-    of the refine and device paths, and the counterpart of K4 where the
+    ``LARGE_K_FROM`` candidates, large-k kernel from there, the wide kernel
+    past ``LARGE_K_MAX`` candidates or ``D_MAX`` columns.  The selection of
+    the refine and device paths, and the counterpart of K4 where the
     ``fast`` precision uses the returned d2 directly."""
     sel = knn_select_large_k if k >= LARGE_K_FROM else knn_select_small_k
-    return sel(query, ref, k, self_mode=self_mode, nr=nr)
+    return sel(query, ref, k, self_mode=self_mode, nr=nr, center=center)
 
 
 def reset_launch_counts() -> None:

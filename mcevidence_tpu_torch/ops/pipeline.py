@@ -160,10 +160,13 @@ def device_budget_bytes(device) -> Optional[int]:
 
 
 def _refine_dotp_post(q64, r64, scal, idx, *, ndim: int, inv_s2: float,
-                      kmax: int, self_mode: bool) -> torch.Tensor:
+                      kmax: int, self_mode: bool,
+                      offset: int = 0) -> torch.Tensor:
     """Everything after selection, on the card in f64: the candidates' d2,
     the sufficiency statistic, (d2*inv_s2)^(ndim/2)*scal and its sum over
     rows.  Returns [dotp (kmax), thin_count] as one (kmax+1,) f64 tensor.
+    In self mode query row i is reference row ``offset`` + i (a shard of
+    the query rows), whose own candidate is set to distance 0.
 
     Streams over query rows in chunks of ``_gather_chunk_rows``; only the
     (kmax,) sum and the count live across chunks."""
@@ -178,7 +181,7 @@ def _refine_dotp_post(q64, r64, scal, idx, *, ndim: int, inv_s2: float,
         diff = q64[lo:hi, None, :] - r64[ic.clamp(min=0)]
         d2 = (diff * diff).sum(-1).masked_fill(ic < 0, math.inf)
         if self_mode:
-            own = torch.arange(lo, hi, device=dev)[:, None]
+            own = torch.arange(offset + lo, offset + hi, device=dev)[:, None]
             d2 = d2.masked_fill(ic == own, 0.0)
         d2 = torch.sort(d2, dim=1).values
         if k_sel > kmax:
@@ -198,40 +201,52 @@ def _refine_dotp_post(q64, r64, scal, idx, *, ndim: int, inv_s2: float,
 
 def fused_refine_dotp(q64, r64, scal, n_ref_true, ndim, inv_s2, *,
                       k_sel: int, kmax: int, engine: str = "auto",
-                      self_mode: bool = True) -> torch.Tensor:
+                      self_mode: bool = True, offset: int = 0,
+                      kernel_self_pin: bool = True) -> torch.Tensor:
     """Selection + f64 refinement + reduction of one estimate on the
     coordinates' device.  ``q64``/``r64`` (N, d) f64 whitened coordinates
     (``r64`` is ``q64`` in self mode), ``scal`` (N,) f64.  Returns the
     (kmax+1,) f64 device tensor [dotp_k..., thin_count] without waiting
-    for it."""
+    for it.
+
+    ``kernel_self_pin=False`` (a ring rank's query shard, as JAX's sharded
+    program passes it): ``q64`` holds the query rows ``offset`` .. of the
+    reference ``r64``, the kernel selects without its self pin (the own
+    row wins a slot at distance 0), and the refinement zeroes the own
+    candidate by its global row."""
     q32 = q64.to(torch.float32)
-    r32 = q32 if self_mode else r64.to(torch.float32)
+    pin = self_mode and kernel_self_pin
+    r32 = q32 if pin else r64.to(torch.float32)
     # smalld sweeps exactly the ndim true coordinates (JAX's d_real = ndim)
     _, idx = selector(engine, "device", width=q32.shape[1])(
-        q32, r32, k_sel, self_mode=self_mode, nr=n_ref_true)
+        q32, r32, k_sel, self_mode=pin, nr=n_ref_true)
     return _refine_dotp_post(q64, r64, scal, idx, ndim=ndim, inv_s2=inv_s2,
-                             kmax=kmax, self_mode=self_mode)
+                             kmax=kmax, self_mode=self_mode, offset=offset)
 
 
 def fused_refine_dotp_batch(q64, r64, scal, nq, nr, ndims, inv_s2s, *,
                             k_sel: int, kmax: int, engine: str = "auto",
-                            self_mode: bool = True) -> torch.Tensor:
+                            self_mode: bool = True, offset: int = 0,
+                            kernel_self_pin: bool = True) -> torch.Tensor:
     """A batch of estimates in ONE selection launch: ``q64`` (B, Nq, d),
     ``r64`` (B, Nr, d) (``q64`` in self mode), ``scal`` (B, Nq), with the
     per-member counts ``nq``/``nr``, dimensionalities ``ndims`` and scales
     ``inv_s2s`` (sequences of B).  Zero-padded columns past a member's ndim
     add exactly 0 to its distances.  The refinement and reduction run per
-    member on its valid rows.  Returns the (B, kmax+1) f64 device tensor."""
+    member on its valid rows.  ``offset``/``kernel_self_pin`` as in
+    ``fused_refine_dotp``, for query shards of the members' reference
+    rows.  Returns the (B, kmax+1) f64 device tensor."""
     q32 = q64.to(torch.float32)
-    r32 = q32 if self_mode else r64.to(torch.float32)
+    pin = self_mode and kernel_self_pin
+    r32 = q32 if pin else r64.to(torch.float32)
     # smalld sweeps the batch's width, as JAX's batched program sweeps its
     # padded width class
     _, idx = selector(engine, "batched", width=q32.shape[2])(
-        q32, r32, k_sel, self_mode=self_mode, nr=nr, nq=nq)
+        q32, r32, k_sel, self_mode=pin, nr=nr, nq=nq)
     return torch.stack([
         _refine_dotp_post(q64[b, :nq[b]], r64[b], scal[b, :nq[b]],
                           idx[b, :nq[b]], ndim=ndims[b], inv_s2=inv_s2s[b],
-                          kmax=kmax, self_mode=self_mode)
+                          kmax=kmax, self_mode=self_mode, offset=offset)
         for b in range(q64.shape[0])])
 
 

@@ -16,8 +16,10 @@ dataset's cells of one dimensionality and row bucket into one launch of the
 f32 program (``parallel/ring.py:sharded_grid_auto_evidence``).
 ``--num-shards/--shard-id`` shard the
 dataset list deterministically (the reference's MPI ranks, with its
-remainder bug Q10 fixed), ``--procs`` forks the shards, and
-``--aggregate-only`` merges their outputs.
+remainder bug Q10 fixed), ``--procs`` forks the shards, ``--distributed``
+takes one shard a rank of a ``torch.distributed`` job started by torchrun
+(each rank on ``cuda:LOCAL_RANK``), and ``--aggregate-only`` merges their
+outputs.
 
 Chain text parsing, the host-side bottleneck, uses the native C++ loader
 with a prefetch thread, so the next model's files parse while the card works
@@ -267,7 +269,10 @@ def _dataset_cells_batched(path_list, names, chain_exts, *, kmax,
     cross-evidence runs on the refine path.  ``cross=True`` splits each
     chain and runs cross-evidence.  Needs numpy and torch, not pandas.
     """
-    from .parallel.ring import (sharded_grid_auto_evidence,
+    # LOCAL: under --distributed each process runs its own datasets'
+    # programs on its own card, as JAX's default mesh takes the process's
+    # local devices
+    from .parallel.ring import (LOCAL, sharded_grid_auto_evidence,
                                 sharded_grid_evidence_refine)
 
     # prefetch file parses on worker threads (the native parser releases the
@@ -396,7 +401,8 @@ def _dataset_cells_batched(path_list, names, chain_exts, *, kmax,
                             c[8] if c[8] is not None else float(np.sum(c[5]))
                             for c in chunk],
                         chains2=([c[6] for c in chunk] if cross else None),
-                        engine=engine, device=device, defer=True)
+                        engine=engine, group=LOCAL, device=device,
+                        defer=True)
                     pend_b.append((chunk, fin))
             for chunk, fin in pend_b:
                 out = fin()
@@ -450,14 +456,14 @@ def _dataset_cells_batched(path_list, names, chain_exts, *, kmax,
                     c[8] if c[8] is not None else float(np.sum(c[5]))
                     for c in group],
                 chains2=[c[6] for c in group] if cross else None,
-                engine=engine, device=device)
+                engine=engine, group=LOCAL, device=device)
         else:
             shifts = [0.0 if c[8] is None
                       else float(np.log(c[8]) - np.log(np.sum(c[5])))
                       for c in group]
             out = sharded_grid_auto_evidence(
                 chains, kmax=kmax, prior_volumes=pv, sumw_log_shifts=shifts,
-                engine=engine, device=device)
+                engine=engine, group=LOCAL, device=device)
         for (imm, icc, *_), lnz in zip(group, out):
             mce[imm, icc, :] = lnz
     _stage_log()
@@ -795,7 +801,12 @@ def build_parser() -> ArgumentParser:
                         "candidate refinement; fast: whitening, selection "
                         "and estimator in f32 on --device (~1e-3 in ln Z)")
     p.add_argument("--distributed", action="store_true",
-                   help="multi-host coordination (not ported yet)")
+                   help="join the torch.distributed job of torchrun's "
+                        "environment (RANK, WORLD_SIZE, LOCAL_RANK, "
+                        "MASTER_ADDR, MASTER_PORT) over gloo: one dataset "
+                        "shard a rank (unless --num-shards/--shard-id say "
+                        "otherwise), --device cuda on cuda:LOCAL_RANK, the "
+                        "last shard merging once every rank is done")
     return p
 
 
@@ -852,10 +863,36 @@ def main(argv=None) -> int:
         # computes nothing
         raise SystemExit("error: -k/--kmax must be >= 2")
     if args.distributed:
-        print("error: --distributed is not ported yet; it waits for the "
-              "multi-GPU ring (ROADMAP.md Queue 1, item 10). Use --procs or "
-              "--num-shards/--shard-id", file=sys.stderr)
-        return 2
+        _init_distributed(args)
+        try:
+            return _main(args, argv)
+        finally:
+            import torch.distributed as dist
+            dist.destroy_process_group()
+    return _main(args, argv)
+
+
+def _init_distributed(args) -> None:
+    """Join torchrun's job (``jax.distributed.initialize`` in JAX): one
+    dataset shard a rank unless the shards were given explicitly, and the
+    rank's own card.  The group carries no tensor, only the barrier before
+    the merge, so it runs over gloo wherever the ranks are."""
+    import datetime
+
+    import torch.distributed as dist
+    dist.init_process_group("gloo", init_method="env://",
+                            timeout=datetime.timedelta(seconds=1800))
+    if args.num_shards == 1:
+        args.num_shards = dist.get_world_size()
+        args.shard_id = dist.get_rank()
+    if args.device == "cuda":
+        args.device = f"cuda:{int(os.environ.get('LOCAL_RANK', '0'))}"
+    logger.info("distributed: rank %d/%d takes dataset shard %d of %d on %s",
+                dist.get_rank(), dist.get_world_size(), args.shard_id,
+                args.num_shards, args.device)
+
+
+def _main(args, argv) -> int:
     if not args.aggregate_only:
         # merging outputs needs no device
         from .evidence import check_precision
@@ -889,6 +926,10 @@ def main(argv=None) -> int:
             precision=args.precision, batch_cells=args.batch_cells,
             cross=args.cross, seed=args.seed, resume=args.resume,
             device=args.device)
+    if args.distributed:
+        # every rank's datasets are on disk before the last shard merges
+        import torch.distributed as dist
+        dist.barrier()
     if args.no_aggregate:
         return 0
     # last shard (or a dedicated --aggregate-only run) merges everything

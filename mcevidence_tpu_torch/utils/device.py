@@ -26,6 +26,11 @@ def resolve_device(name: Union[str, torch.device] = "cuda") -> torch.device:
     if dev.type not in ("cuda", "cpu"):
         raise ValueError(f"unsupported device {str(dev)!r}; use 'cuda' or "
                          "'cpu'")
+    if dev.type == "cuda" and (dev.index or 0) >= torch.cuda.device_count():
+        raise RuntimeError(
+            f"device {str(dev)!r} requested but this host has "
+            f"{torch.cuda.device_count()} card(s); ranks that share a card "
+            "name it explicitly (for example 'cuda:0')")
     return dev
 
 

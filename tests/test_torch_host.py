@@ -188,3 +188,18 @@ def test_interop_round_trips(rng):
     assert_same(carried, whiten_stats(samples))
     np.testing.assert_array_equal(apply_whiten(samples, carried),
                                   apply_whiten(samples, whiten_stats(samples)))
+
+
+def test_every_reference_export_resolves_on_the_port():
+    """Every name of ``mcevidence_tpu.__all__`` resolves on the port, but
+    the two samplers, which wait for ROADMAP Queue 1 item 9."""
+    import mcevidence_tpu
+    import mcevidence_tpu_torch
+    names = set(mcevidence_tpu.__all__) - {"nuts_sample", "stretch_sample"}
+    for name in sorted(names):
+        assert getattr(mcevidence_tpu_torch, name) is not None, name
+        assert name in mcevidence_tpu_torch.__all__, name
+    assert mcevidence_tpu_torch.cosmo_params_list == \
+        mcevidence_tpu.cosmo_params_list
+    assert (mcevidence_tpu_torch.params_info.__module__
+            == "mcevidence_tpu_torch.priors.params_info")

@@ -15,6 +15,7 @@ on the card and skip elsewhere.
 """
 
 import itertools
+import os
 import logging
 
 import numpy as np
@@ -438,6 +439,37 @@ def test_failed_build_raises_with_compiler_output(monkeypatch, tmp_path):
     with pytest.raises(RuntimeError, match="no sm_90a here"):
         _build.build()
     assert not list((tmp_path / "build").iterdir())
+
+
+def test_concurrent_builds_run_one_nvcc(monkeypatch, tmp_path):
+    """Processes or threads that start building together wait on the lock
+    beside the library and take the one build: one compile a source."""
+    import threading
+    log = tmp_path / "calls"
+    script = tmp_path / "fake_nvcc"
+    script.write_text(
+        "#!/bin/sh\n"
+        f"echo x >> {log}\n"
+        "sleep 0.3\n"
+        "while [ $# -gt 0 ]; do\n"
+        "  if [ \"$1\" = -o ]; then shift; : > \"$1\"; fi\n"
+        "  shift\n"
+        "done\n")
+    script.chmod(0o755)
+    monkeypatch.setattr(_build, "find_nvcc", lambda: str(script))
+    monkeypatch.setattr(_build, "BUILD_DIR", str(tmp_path / "build"))
+    paths = []
+    threads = [threading.Thread(target=lambda: paths.append(_build.build()))
+               for _ in range(3)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(60)
+    assert len(paths) == 3 and len(set(paths)) == 1
+    calls = log.read_text().split()
+    assert len(calls) == len(_build._sources()) + 1      # compiles + link
+    assert sorted(p.name for p in (tmp_path / "build").iterdir()) == [
+        os.path.basename(paths[0])]
 
 
 # --- on the card ----------------------------------------------------------

@@ -206,14 +206,36 @@ def test_procs_forks_the_port(minigrid, tmp_path):
                                        "delta_lnE_all.txt"))
 
 
-@pytest.mark.parametrize("args,message", [
-    (["--distributed"], "item 10"),
-], ids=["distributed"])
-def test_unported_options_exit_2(minigrid, tmp_path, capsys, args, message):
-    assert planck.main(["--rootdir", minigrid, "-o", str(tmp_path), "-v",
-                        "0", "--device", "cpu"] + args) == 2
-    assert message in capsys.readouterr().err
-    assert not os.path.exists(os.path.join(str(tmp_path), "AllChains"))
+def _free_port() -> int:
+    import socket
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        return sock.getsockname()[1]
+
+
+def test_distributed_two_ranks_match_one_process(twogrid, tmp_path):
+    """``--distributed`` under torchrun's environment: two ranks of a gloo
+    job on localhost, one dataset each, the last merging after both are
+    done; the tables equal the one-process run's."""
+    want, got = str(tmp_path / "one"), str(tmp_path / "two")
+    assert planck.main(["--rootdir", twogrid, "-o", want, "-v", "0",
+                        "--device", "cpu"]) == 0
+    env = dict(os.environ, WORLD_SIZE="2", MASTER_ADDR="localhost",
+               MASTER_PORT=str(_free_port()), OMP_NUM_THREADS="1")
+    procs = [subprocess.Popen(
+        [sys.executable, "-m", "mcevidence_tpu_torch.planck", "--rootdir",
+         twogrid, "-o", got, "-v", "0", "--device", "cpu", "--distributed"],
+        cwd=ROOT, env=dict(env, RANK=str(r), LOCAL_RANK=str(r)),
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+        for r in range(2)]
+    try:
+        outs = [p.communicate(timeout=240) for p in procs]
+    finally:
+        for p in procs:
+            p.kill()
+    for p, (_, err) in zip(procs, outs):
+        assert p.returncode == 0, err[-3000:]
+    _assert_same_outputs(got, want, [DS, DS2])
 
 
 @pytest.mark.parametrize("extra,jax_extra,atol", [
