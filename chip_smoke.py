@@ -117,6 +117,37 @@ fails before printing any result.
    Then ``dryrun_multichip(4)`` on the card and ``planck --distributed``
    on 2 ranks against the one-process tables.  A failed rank fails the
    phase.  The times share one card and its host: not a scaling figure.
+7. the validation path (the examples and samplers), each leg with the
+   launch counts set to 0 just before it and read just after:
+   a. the examples' chains at scripts/validation_study.py's sizes, one
+      seed a cell, through ``MCEvidence`` and ``evidence_fn`` on the card:
+      ``gaussian_eg`` (d=6) and ``gaussian_corr_eg`` (d=6, 10) at N=32000,
+      ``banana_eg`` at 128000, the ``glm_eg`` Gibbs chain of 4000, the
+      importance-weighted chain (d=4, N=32000), the cross leg (d=8, two
+      halves of 16000), ``nested_eg`` at d=2 and 4 through
+      ``write_products`` and ``load_nested_chains`` (equal-weights and
+      weighted), and in ``device`` precision the N sweep (d=4, N=2000 to
+      128000) and the d sweep (N=32000, d=2 to 15: d=12 and 15 on the
+      ``Padded<16>`` layout).  Each leg is held at 1e-6 to the same call
+      with the plain selection on the card (``engine="torch"``), legs of up
+      to 16000 rows a side also to the same call on ``device="cpu"``, the
+      unweighted ones to the f64 oracle, and every one to its analytic or
+      quadrature truth within tests/test_examples.py's band for its model
+      (the sweeps within 3 rms of the bias JAX's study measured,
+      docs/VALIDATION_STUDY.md); ``knn_select_small_k`` must launch.
+   b. ``glm_nuts(seed=3)`` with its gradients on the card, 2500 draws,
+      under tests/test_examples.py:69-83's asserts (mean within 6 sigma of
+      the ML point, ln Z estimated on the card within 0.3 of the closed
+      form); the median of 200 warm gradient evaluations and the sampling
+      wall time on the card and on the host.
+   c. ``python -m mcevidence_tpu_torch.examples gaussian_eg 32000`` and
+      ``... nested_eg`` as child processes on the card: exit 0 and print
+      tests/test_examples.py:86-98's lines.
+   d. ``MCEvidence(...).evidence(profile=True)`` with ``MCE_PROFILE_DIR``
+      set, refine, device and fast at N=65536, d=8, kmax=5: bit-equal to
+      the untraced call; each Chrome trace read back for its CUDA kernel
+      time by name, its window and the device-busy share of that window
+      (no CUDA kernel event fails the leg).
 
 The line before the last is a JSON object of the kernels; the last line is
 ``{"ok": true, "device": {...}}``.
@@ -152,6 +183,19 @@ KERNELS = ("knn_select_small_k", "knn_select_large_k", "knn_select_batched",
            "knn_select_smalld", "knn_select_packed", "knn_select_prologue",
            "knn_select_wide")
 RING_NOTE = "ranks share one card: not a scaling figure"
+# JAX's bias and rms of ln Z over 10 seeds a cell (docs/VALIDATION_STUDY.md,
+# from scripts/validation_study.py; truth ln Z = 0): the N sweep at d=4,
+# k=1, and the d sweep at N=32000, k=1 and k=4
+STUDY_N = {2000: (-0.0312, 0.0379), 8000: (-0.0201, 0.0255),
+           32000: (-0.0122, 0.0128), 128000: (-0.0069, 0.0072)}
+STUDY_D = {2: ((0.0001, 0.0044), (-0.0021, 0.0041)),
+           4: ((-0.0122, 0.0128), (-0.0196, 0.0199)),
+           8: ((-0.0255, 0.0266), (-0.0148, 0.0156)),
+           12: ((0.1025, 0.1027), (0.1580, 0.1580)),
+           15: ((0.2952, 0.2953), (0.3916, 0.3917))}
+STUDY_MARGIN = 3.0            # one seed: |lnZ - bias| <= 3 rms
+CPU_ROWS_MAX = 16000          # legs held on the CPU too (see phase 7a)
+GPU_EVENT_CATS = ("kernel", "gpu_memcpy", "gpu_memset")
 
 
 def phase(name, **fields):
@@ -178,7 +222,7 @@ def lattice_chain(side=40):
     return theta, lnl
 
 
-def oracle_evidence(theta, lnl, kmax, theta2=None):
+def oracle_evidence(theta, lnl, kmax, theta2=None, dev="cuda"):
     """Independent f64 estimator (tests/test_evidence.py:15's formula):
     np.cov whitening, an f64 brute-force kNN on the card, the reference's
     volume/dotp/amax loop over k."""
@@ -190,9 +234,9 @@ def oracle_evidence(theta, lnl, kmax, theta2=None):
     log_jac = 0.5 * math.log(np.linalg.det(cov))
     s = (theta @ evec) / np.sqrt(ev)
     r = (theta2 @ evec) / np.sqrt(ev) if cross else s
-    sq = torch.as_tensor(s, dtype=torch.float64, device="cuda")
+    sq = torch.as_tensor(s, dtype=torch.float64, device=dev)
     rq = sq if not cross else torch.as_tensor(r, dtype=torch.float64,
-                                              device="cuda")
+                                              device=dev)
     d2, _ = knn_select_torch(sq, rq, kmax, self_mode=not cross)
     dist = np.sqrt(d2.cpu().numpy())
     n, ndim = theta.shape
@@ -780,6 +824,322 @@ def ring_phase(total, smi, theta, lnl, one_card, dev="cuda:0"):
               note=RING_NOTE, gpu=smi, ok=ok)
         if not ok:
             raise AssertionError(f"planck --distributed: |dlnZ| {gap}")
+
+
+def study_chain(rng, n, d):
+    """scripts/validation_study.py:38's chain: drawn exactly from its own
+    normalised Gaussian likelihood, so the true ln Z is 0."""
+    mean = np.linspace(1.0, 2.0, d)
+    sig = np.full(d, 0.05)
+    th = rng.normal(mean, sig, size=(n, d))
+    z = (th - mean) / sig
+    lnl = (-0.5 * np.sum(z * z, axis=1)
+           - 0.5 * d * np.log(2 * np.pi) - np.sum(np.log(sig)))
+    return th, lnl
+
+
+def validation_legs(tmp, dev="cuda", scale=1):
+    """Phase 7a's legs: (name, rows a side, call(device, engine) -> lnZ,
+    oracle thunk or None, [(column, truth, band)]).  ``scale`` divides the
+    row counts, for a rehearsal on the CPU."""
+    from mcevidence_tpu_torch import MCEvidence, evidence_fn
+    from mcevidence_tpu_torch import examples as ex
+    from mcevidence_tpu_torch.chains.nested import load_nested_chains
+
+    def facade(chain, **kw):
+        return lambda dev, eng: MCEvidence(chain, kmax=2, verbose=0,
+                                           device=dev, engine=eng,
+                                           **kw).evidence()
+
+    def unweighted(th, lnl, kmax=2, shift=0.0, th2=None):
+        return lambda: oracle_evidence(th, lnl, kmax, theta2=th2,
+                                       dev=dev) + shift
+
+    legs = []
+    # tests/test_examples.py's bands, at scripts/validation_study.py's sizes
+    # and, where the study has the cell, its first seed
+    m = ex.gaussian_eg(ndim=6, verbose=0, rng=np.random.default_rng(701))
+    th, lnl = m.Sampler(32000 // scale)
+    legs.append(("gaussian_eg d=6", len(th),
+                 facade({"samples": th, "loglikes": lnl}),
+                 unweighted(th, lnl), [(0, 0.0, 0.2)]))
+    for d in (6, 10):
+        m = ex.gaussian_corr_eg(ndim=d, verbose=0,
+                                rng=np.random.default_rng(7000 * d))
+        th, lnl = m.Sampler(32000 // scale)
+        legs.append((f"gaussian_corr_eg d={d}", len(th),
+                     facade({"samples": th, "loglikes": lnl}, ischain=True),
+                     unweighted(th, lnl), [(0, 0.0, 0.15)]))
+    m = ex.banana_eg(verbose=0, rng=np.random.default_rng(9000 + 128000))
+    th, lnl = m.Sampler(128000 // scale)
+    legs.append(("banana_eg", len(th),
+                 facade({"samples": th, "loglikes": lnl}, ischain=True,
+                        priorvolume=m.prior_volume),
+                 unweighted(th, lnl, shift=-math.log(m.prior_volume)),
+                 [(0, m.evidence(), 0.2)]))
+    # burn-in off, so that the oracle sees the rows the estimate sees
+    m = ex.glm_eg(verbose=0, rng=np.random.default_rng(12345))
+    th, lnl = m.Sampler(nsamples=4000 // scale)
+    vol = float(m.ptheta.prod())
+    legs.append(("glm_eg Gibbs", len(th),
+                 facade({"samples": th, "loglikes": lnl}, priorvolume=vol),
+                 unweighted(th, lnl, shift=-math.log(vol)),
+                 [(0, m.evidence(), 0.3)]))
+    # importance weights w = p/q from a 1.5x wider proposal: no oracle (it
+    # is unweighted)
+    d, n, c = 4, 32000 // scale, 1.5
+    rng = np.random.default_rng(3000 + 150)
+    mean, sig = np.linspace(1.0, 2.0, d), np.full(d, 0.05)
+    lognorm = -0.5 * d * math.log(2 * math.pi) - np.sum(np.log(sig))
+    thw = rng.normal(mean, c * sig, size=(n, d))
+    lnlw = -0.5 * np.sum(((thw - mean) / sig) ** 2, axis=1) + lognorm
+    lnq = (-0.5 * np.sum(((thw - mean) / (c * sig)) ** 2, axis=1) + lognorm
+           - d * math.log(c))
+    ww = np.exp(lnlw - lnq)
+    legs.append(("importance-weighted d=4", n,
+                 lambda dev, eng: evidence_fn(thw, lnlw, ww, kmax=2,
+                                              device=dev, engine=eng),
+                 None, [(0, 0.0, 0.15)]))
+    # cross: one chain of N split in two halves (validation_study.py's
+    # cross_leg)
+    rng = np.random.default_rng(5000 + 32000 + 8)
+    n = 32000 // scale
+    thc, lnlc = study_chain(rng, n, 8)
+    perm = rng.permutation(n)
+    i1, i2 = perm[:n // 2], perm[n // 2:]
+    legs.append(("cross d=8", n // 2,
+                 lambda dev, eng: evidence_fn(thc[i1], lnlc[i1],
+                                              samples2=thc[i2], kmax=2,
+                                              device=dev, engine=eng),
+                 unweighted(thc[i1], lnlc[i1], th2=thc[i2]),
+                 [(0, 0.0, 0.2)]))
+    # a true nested-sampling run written as MultiNest products and read
+    # back: the equal-weights rows (tests/test_nested.py's band 0.35) and
+    # the weighted dead points (that test asserts only finiteness)
+    for nd, seed in ((2, 0), (4, 100)):
+        m = ex.nested_eg(ndim=nd, verbose=0, rng=np.random.default_rng(seed))
+        os.makedirs(os.path.join(tmp, f"nested_d{nd}"))
+        root = m.write_products(os.path.join(tmp, f"nested_d{nd}"))
+        vol = m.prior_volume
+        for eq in (True, False):
+            chains = load_nested_chains(root, equal_weights=eq)
+            rows = chains[0].shape[0]
+            if eq:
+                if not np.all(chains[0][:, 0] == 1.0):
+                    raise AssertionError("equal-weights rows not unit")
+                oracle = unweighted(chains[0][:, 2:], -chains[0][:, 1],
+                                    shift=-math.log(vol))
+                truth = [(0, m.evidence(), 0.35)]
+            else:
+                oracle, truth = None, [(0, m.evidence(), math.inf)]
+            legs.append((f"nested_eg d={nd} "
+                         f"{'equal-weights' if eq else 'weighted'}", rows,
+                         facade(chains, priorvolume=vol), oracle, truth))
+    # the sweeps in device precision, each within 3 rms of JAX's bias
+    for n in sorted(STUDY_N):
+        th, lnl = study_chain(np.random.default_rng(4000 + n), n // scale,
+                              4)
+        b, r = STUDY_N[n]
+        legs.append((f"N sweep d=4 N={n} device", len(th),
+                     functools.partial(
+                         lambda th, lnl, dev, eng: evidence_fn(
+                             th, lnl, kmax=2, precision="device", device=dev,
+                             engine=eng), th, lnl),
+                     unweighted(th, lnl), [(0, b, STUDY_MARGIN * r)]))
+    for d in sorted(STUDY_D):
+        th, lnl = study_chain(np.random.default_rng(1000 * d + 32000),
+                              32000 // scale, d)
+        (b1, r1), (b4, r4) = STUDY_D[d]
+        legs.append((f"d sweep N=32000 d={d} device", len(th),
+                     functools.partial(
+                         lambda th, lnl, dev, eng: evidence_fn(
+                             th, lnl, kmax=5, precision="device", device=dev,
+                             engine=eng), th, lnl),
+                     unweighted(th, lnl, kmax=5),
+                     [(0, b1, STUDY_MARGIN * r1), (3, b4, STUDY_MARGIN * r4)]))
+    return legs
+
+
+def trace_summary(path):
+    """A Chrome trace's CUDA kernel time by name (us), its window (us,
+    first to last event) and the device-busy share of that window (the
+    union of kernel, copy and set spans)."""
+    with open(path) as fh:
+        spans = [e for e in json.load(fh)["traceEvents"]
+                 if e.get("ph") == "X" and "dur" in e]
+    kernels = {}
+    for e in spans:
+        if e.get("cat") == "kernel":
+            name = e["name"] if len(e["name"]) <= 96 else e["name"][:93] + "..."
+            kernels[name] = kernels.get(name, 0.0) + float(e["dur"])
+    lo = min(float(e["ts"]) for e in spans)
+    hi = max(float(e["ts"]) + float(e["dur"]) for e in spans)
+    busy, end = 0.0, -math.inf
+    for a, b in sorted((float(e["ts"]), float(e["ts"]) + float(e["dur"]))
+                       for e in spans if e.get("cat") in GPU_EVENT_CATS):
+        if b > end:
+            busy += b - max(a, end)
+            end = b
+    return kernels, hi - lo, busy
+
+
+def validation_phase(total, smi, theta, lnl, dev="cuda", scale=1):
+    """7. The validation path on the card; each leg with the launch counts
+    set to 0 just before it and read just after.  ``dev="cpu"`` with a
+    ``scale`` > 1 rehearses the phase's control flow on a host without a
+    card (the kernels' plain versions, no launches, no CUDA events)."""
+    from mcevidence_tpu_torch import MCEvidence, samplers
+    from mcevidence_tpu_torch import examples as ex
+    t_phase = time.perf_counter()
+
+    # 7a. the examples' chains through MCEvidence and evidence_fn
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        legs = validation_legs(tmp, dev, scale)
+    setup_s = time.perf_counter() - t0
+    t_legs = time.perf_counter()
+    got = {}
+    with Counted("validation: the examples' chains", total) as c:
+        for name, _, call, _, _ in legs:
+            got[name] = call(dev, "auto")
+    c.require("knn_select_small_k")
+    cpu_s = {}
+    for name, rows, call, oracle, truth in legs:
+        lnz = got[name]
+        plain = call(dev, "torch")
+        gaps = {"plain_on_card": float(np.max(np.abs(lnz - plain)))}
+        if rows <= CPU_ROWS_MAX:
+            t0 = time.perf_counter()
+            gaps["cpu"] = float(np.max(np.abs(lnz - call("cpu", "auto"))))
+            cpu_s[name] = time.perf_counter() - t0
+        if oracle is not None:
+            gaps["oracle"] = float(np.max(np.abs(lnz - oracle())))
+        bands = [{"k": col + 1, "truth": t, "band": b,
+                  "gap": float(lnz[col] - t)} for col, t, b in truth]
+        ok = bool(np.all(np.isfinite(lnz))
+                  and max(gaps.values()) <= DLNZ_TOL
+                  and all(abs(x["gap"]) <= x["band"] for x in bands))
+        phase("validation", leg=name, rows=rows, lnz=lnz.tolist(),
+              max_abs_dlnz=gaps, tol=DLNZ_TOL,
+              truth=[{**x, "band": None if math.isinf(x["band"])
+                      else x["band"]} for x in bands],
+              cpu_s=cpu_s.get(name), ok=ok)
+        if not ok:
+            raise AssertionError(f"validation {name}: gaps {gaps}, truth "
+                                 f"{bands}")
+    legs_s = time.perf_counter() - t_legs
+
+    # 7b. NUTS with its gradients on the card, under the asserts of
+    # tests/test_examples.py:69-83, beside the same sampling on the host
+    nuts_runs = {}
+    for where in (dev, "cpu"):
+        nuts = ex.glm_nuts(seed=3, device=where)
+        f = samplers._make_vgrad(nuts.lnprob, where)
+        x0 = nuts.model.theta_sample.copy()
+        f(x0)
+        evals = []
+        for _ in range(200):
+            t0 = time.perf_counter()
+            f(x0)
+            evals.append(time.perf_counter() - t0)
+        # the sampler evaluates lnprob once a gradient: count them
+        calls, lnprob = [0], nuts.lnprob
+
+        def counted(x, lnprob=lnprob, calls=calls):
+            calls[0] += 1
+            return lnprob(x)
+        nuts.lnprob = counted
+        t0 = time.perf_counter()
+        draws = nuts.Sampler(nsamples=2500 // scale)
+        nuts_runs[where] = (nuts, draws, statistics.median(evals),
+                            time.perf_counter() - t0, calls[0])
+    nuts, (samples, lnp), *_ = nuts_runs[dev]
+    sig = np.sqrt(np.diag(np.linalg.inv(nuts.model.D.T @ nuts.model.D)))
+    dmean = np.abs(samples.mean(axis=0) - nuts.model.theta_sample) / sig
+    with Counted("validation: glm_nuts ln Z", total) as c:
+        nuts_lnz = MCEvidence({"samples": samples, "loglikes": lnp},
+                              verbose=0, priorvolume=float(nuts.ptheta.prod()),
+                              kmax=2, device=dev).evidence()
+    c.require("knn_select_small_k")
+    truth = nuts.evidence()
+    ok = bool(np.all(dmean < 6.0) and abs(nuts_lnz[0] - truth) < 0.3)
+    phase("nuts", model="glm_nuts seed=3, 2500 draws, 400 warmup",
+          mean_gap_in_sigma=dmean.tolist(), lnz=nuts_lnz.tolist(),
+          truth=truth, band=0.3,
+          warm_eval_s={d: r[2] for d, r in nuts_runs.items()},
+          sampling_wall_s={d: r[3] for d, r in nuts_runs.items()},
+          sampling_evals={d: r[4] for d, r in nuts_runs.items()},
+          same_draws_cuda_cpu=bool(np.array_equal(
+              samples, nuts_runs["cpu"][1][0])), gpu=smi, ok=ok)
+    if not ok:
+        raise AssertionError(f"glm_nuts on the card: mean gap {dmean} "
+                             f"sigma, lnZ {nuts_lnz} vs {truth}")
+
+    # 7c. the examples' CLI, two child processes on the card (their launch
+    # counts stay in their processes)
+    t0 = time.perf_counter()
+    on_host = [] if dev == "cuda" else ["--device", dev]
+    procs = {args[0]: subprocess.Popen(
+        [sys.executable, "-m", "mcevidence_tpu_torch.examples", *args,
+         *on_host], cwd=HERE, stdout=subprocess.PIPE,
+        stderr=subprocess.PIPE, text=True)
+        for args in (["gaussian_eg", str(32000 // scale)], ["nested_eg"])}
+    outs = {}
+    try:
+        for name, proc in procs.items():
+            out, err = proc.communicate(timeout=300)
+            outs[name] = (proc.returncode, out, err)
+    finally:
+        for proc in procs.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    want = {"gaussian_eg": ("estimated ln Z", "analytic ln Z"),
+            "nested_eg": ("estimated ln Z", "nested run's own ln Z",
+                          "analytic ln Z")}
+    for name, (rc, out, err) in outs.items():
+        ok = rc == 0 and all(s in out for s in want[name])
+        phase("examples_cli", method=name, rc=rc,
+              lines=[ln for ln in out.splitlines() if "ln Z" in ln],
+              ok=ok)
+        if not ok:
+            raise AssertionError(f"examples {name}: rc={rc}\n{out}\n"
+                                 f"{err[-2000:]}")
+    cli_s = time.perf_counter() - t0
+
+    # 7d. the MCE_PROFILE_DIR trace of MCEvidence.evidence(profile=True)
+    t0 = time.perf_counter()
+    chain = {"samples": theta, "loglikes": lnl}
+    with tempfile.TemporaryDirectory() as tmp, \
+            Counted("validation: traced MCEvidence", total) as c:
+        for prec in ("refine", "device", "fast"):
+            mce = MCEvidence(chain, kmax=5, verbose=0, precision=prec,
+                             device=dev)
+            plain = mce.evidence()
+            os.environ["MCE_PROFILE_DIR"] = os.path.join(tmp, prec)
+            try:
+                traced = mce.evidence(profile=True)
+            finally:
+                del os.environ["MCE_PROFILE_DIR"]
+            (path,) = [os.path.join(tmp, prec, p)
+                       for p in os.listdir(os.path.join(tmp, prec))]
+            kernels, window, busy = trace_summary(path)
+            same = bool(np.array_equal(traced, plain))
+            ok = same and (bool(kernels) or dev == "cpu")
+            phase("trace", precision=prec,
+                  shape=f"MCEvidence auto N={theta.shape[0]} "
+                        f"d={theta.shape[1]} kmax=5",
+                  kernel_us=kernels, window_us=window, device_busy_us=busy,
+                  device_busy_share=busy / window, bit_equal_untraced=same,
+                  trace_bytes=os.path.getsize(path), gpu=smi, ok=ok)
+            if not ok:
+                raise AssertionError(f"trace {prec}: bit-equal {same}, "
+                                     f"CUDA kernel events {len(kernels)}")
+    c.require("knn_select_small_k")
+    phase("validation_seconds", setup_s=setup_s, legs_s=legs_s,
+          nuts_s=sum(r[3] for r in nuts_runs.values()), cli_s=cli_s,
+          trace_s=time.perf_counter() - t0,
+          total_s=time.perf_counter() - t_phase, cpu_leg_s=cpu_s, gpu=smi)
 
 
 def main():
@@ -1710,6 +2070,10 @@ def main():
     ring_phase(total, smi, theta, lnl, {
         "refine": auto, "device": dev_auto, "fast": fast_auto,
         "cross": cross})
+
+    # 7. the validation path: the examples' chains through the kernels,
+    # NUTS on the card, the examples' CLI and the profiler trace
+    validation_phase(total, smi, theta, lnl)
 
     # each kernel's body (the __global__ function) is in knn_common.cuh; the
     # source beside it instantiates it and holds the C entry point

@@ -10,9 +10,11 @@ on the card in ``fast`` precision), the Planck grid driver
 (``python -m mcevidence_tpu_torch.planck``), the JSON-lines service
 (``python -m mcevidence_tpu_torch.serve``), the model comparison
 (``python -m mcevidence_tpu_torch.compare``), the reference's
-``MCSamples`` surface, and the ring over ``torch.distributed`` ranks
-(``parallel/ring.py``, ``graft_entry.py``).  It imports torch and numpy,
-never jax.
+``MCSamples`` surface, the ring over ``torch.distributed`` ranks
+(``parallel/ring.py``, ``graft_entry.py``), and the validation harness:
+the NUTS and stretch-move samplers (``samplers.py``) and the
+analytic-truth examples (``python -m mcevidence_tpu_torch.examples``).
+It imports torch and numpy, never jax.
 
 The API is exported lazily, so that importing the package stays cheap.
 """
@@ -42,6 +44,8 @@ _EXPORTS = {
     "iscosmo_param": "registry",
     "get_prior_volume": "priors.params_info",
     "params_info": "priors.params_info",
+    "nuts_sample": "samplers",
+    "stretch_sample": "samplers",
 }
 
 

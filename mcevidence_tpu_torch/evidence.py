@@ -21,10 +21,12 @@ from __future__ import annotations
 
 import logging
 import math
+import os
 import time
 from typing import Callable, Optional
 
 import numpy as np
+import torch
 
 from .chains.preprocess import importance_sample
 from .chains.reader import ingest
@@ -315,7 +317,10 @@ class MCEvidence:
         returns the info dict.  ``covtype`` defaults to 'all' regardless of
         the constructor value unless explicitly passed None (quirk Q1).
         ``profile=True`` logs the per-stage wall times (the reference accepts
-        profile= and ignores it, MCEvidence.py:950-952).
+        profile= and ignores it, MCEvidence.py:950-952) and, when
+        ``MCE_PROFILE_DIR`` is set, writes a ``torch.profiler`` Chrome trace
+        of the run (CPU activity, and CUDA activity on a card) into that
+        directory, named with the process id and a time stamp.
         """
         if verbose is None:
             verbose = self.verbose
@@ -324,6 +329,28 @@ class MCEvidence:
             covtype = self.covtype
         _check_mode(covtype, COVTYPES, "covtype")
 
+        trace_dir = os.environ.get("MCE_PROFILE_DIR") if profile else None
+        if not trace_dir:
+            return self._evidence_impl(verbose, rand, info, covtype, profile,
+                                       log_pv, pos_lnp, prewhiten)
+        from torch.profiler import ProfilerActivity, profile as torch_profile
+        on_card = self.device.type == "cuda"
+        activities = [ProfilerActivity.CPU] + (
+            [ProfilerActivity.CUDA] if on_card else [])
+        with torch_profile(activities=activities) as prof:
+            out = self._evidence_impl(verbose, rand, info, covtype, profile,
+                                      log_pv, pos_lnp, prewhiten)
+            if on_card:
+                torch.cuda.synchronize(self.device)
+        os.makedirs(trace_dir, exist_ok=True)
+        path = os.path.join(trace_dir, f"mce_trace_{os.getpid()}_"
+                                       f"{time.time_ns()}.json")
+        prof.export_chrome_trace(path)
+        logger.info("profiler trace written to %s", path)
+        return out
+
+    def _evidence_impl(self, verbose, rand, info, covtype, profile, log_pv,
+                       pos_lnp, prewhiten):
         kmax, ndim = self.kmax, self.ndim
         if (self.precision == "device" and self.brange is None and prewhiten
                 and (not self.split or covtype == "all")):

@@ -7,6 +7,8 @@ evaluate the estimator in f64, so they agree to 1e-9; the sklearn oracle of
 tests/test_evidence.py holds both to 1e-6.
 """
 
+import os
+
 import numpy as np
 import pytest
 import torch
@@ -153,3 +155,37 @@ def test_cuda_without_a_card_raises(monkeypatch):
         pt.evidence_fn(theta, lnl)
     with pytest.raises(RuntimeError, match="torch.cuda.is_available"):
         pt.MCEvidence({"samples": theta, "loglikes": lnl}, verbose=0)
+
+
+@pytest.mark.parametrize("precision", ["refine", "device", "fast"])
+def test_profile_trace_under_mce_profile_dir(tmp_path, monkeypatch,
+                                             precision):
+    """``profile=True`` with ``MCE_PROFILE_DIR`` set writes one parseable
+    Chrome trace with events, and the traced lnZ is the untraced one bit for
+    bit (``mcevidence_tpu/evidence.py:313-328``'s semantics)."""
+    import json
+    theta, lnl = _chain(7, n=400)
+    mce = pt.MCEvidence({"samples": theta, "loglikes": lnl}, kmax=3,
+                        verbose=0, precision=precision, device="cpu")
+    plain = mce.evidence()
+    monkeypatch.setenv("MCE_PROFILE_DIR", str(tmp_path / "traces"))
+    traced = mce.evidence(profile=True)
+    assert np.array_equal(traced, plain)
+    (name,) = list((tmp_path / "traces").iterdir())
+    assert name.name.startswith(f"mce_trace_{os.getpid()}_")
+    with open(name) as fh:
+        events = json.load(fh)["traceEvents"]
+    assert any(e.get("ph") == "X" and e.get("dur", 0) > 0 for e in events)
+
+
+def test_profile_without_mce_profile_dir_writes_nothing(tmp_path,
+                                                        monkeypatch):
+    theta, lnl = _chain(7, n=400)
+    monkeypatch.delenv("MCE_PROFILE_DIR", raising=False)
+    monkeypatch.chdir(tmp_path)
+    mce = pt.MCEvidence({"samples": theta, "loglikes": lnl}, kmax=3,
+                        verbose=0, device="cpu")
+    want = mce.evidence()
+    assert np.array_equal(mce.evidence(profile=True), want)
+    assert "knn_s" in mce.timings
+    assert list(tmp_path.iterdir()) == []

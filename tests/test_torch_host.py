@@ -191,12 +191,10 @@ def test_interop_round_trips(rng):
 
 
 def test_every_reference_export_resolves_on_the_port():
-    """Every name of ``mcevidence_tpu.__all__`` resolves on the port, but
-    the two samplers, which wait for ROADMAP Queue 1 item 9."""
+    """Every name of ``mcevidence_tpu.__all__`` resolves on the port."""
     import mcevidence_tpu
     import mcevidence_tpu_torch
-    names = set(mcevidence_tpu.__all__) - {"nuts_sample", "stretch_sample"}
-    for name in sorted(names):
+    for name in sorted(mcevidence_tpu.__all__):
         assert getattr(mcevidence_tpu_torch, name) is not None, name
         assert name in mcevidence_tpu_torch.__all__, name
     assert mcevidence_tpu_torch.cosmo_params_list == \
