@@ -9,10 +9,14 @@ non-zero.  Without a CUDA device, or without the package beside it, it
 fails before printing any result.
 
 1. probe: torch/CUDA versions, the card, nvcc; TF32 switched off.
-2. build: nvcc builds ``mcevidence_tpu_torch/csrc/*.cu`` for sm_90a, one
-   process per source, all started together; each source's compile time,
-   and the registers and spill bytes of each body on each layout from
-   nvcc's ``--resource-usage`` log.
+2. build: nvcc builds each ``mcevidence_tpu_torch/csrc/*.cu`` for sm_90a
+   into a library of its own: ``knn_select.cu`` alone first (the default
+   path's first-call build), then the others, one process per source, all
+   started together; no library is loaded yet.  Each source's compile
+   time, and the registers and spill bytes of each body on each layout
+   (the wide bodies: route A per Padded width, keys a lane and warps a
+   block; route B per key and list placement) from nvcc's
+   ``--resource-usage`` log.
 3. kernel vs plain: each kernel against its plain version on the same CUDA
    tensors: ``knn_select_small_k`` and ``knn_select_large_k`` against
    ``knn_select_torch``, ``knn_select_batched`` against
@@ -44,18 +48,24 @@ fails before printing any result.
    padded query rows, each in self and cross mode on the ``Padded``,
    ``Compact`` and batched forms, under the same criterion.
    ``knn_select_wide`` (k > 256 or d > 64): self and cross, 2-D and
-   batched, k = 257 / 264 / 300 / 512 / 1024 at d = 8 and d = 65 / 100 /
-   128 at k = 9 / 44, nr under one of its tiles and not a multiple of one,
+   batched, k = 257 / 264 / 300 / 512 / 1024 / 9000 (the lists in a global
+   workspace) at d = 8 and d = 65 / 100 / 128 at k = 9 / 44, nr under one
+   of its tiles and not a multiple of one,
    garbage past nr, one-point rows in the exact tie order, exact and at 11
-   and 12 low bits, under the same criterion; and at k = 9 / 44 / 200 / 256
-   ``torch.equal`` to the two bodies' bits.
+   and 12 low bits, under the same criterion; the warp queue's edges (k =
+   257, 511, 512, 513, 1023, 1024, 1025 at d = 3, 8, 32, 64, self and
+   cross, batched with heterogeneous nr and nq; at d = 8 and 64 also at 11
+   and 12 low bits, route B); route A ``torch.equal`` to route B where both
+   apply; and at k = 9 / 44 / 200 / 256 ``torch.equal`` to the two bodies'
+   bits.
 4. the main paths through the user's entry points, each with the launch
    counts set to 0 just before it and read just after:
    a. refine precision: ``evidence_fn`` auto, cross, a lattice whose ties
       force the refine guard's retry, and the CLI, against an f64 oracle
       (whitening and the estimator written out here, fed by an f64
       brute-force kNN on the card) at |dlnZ| <= 1e-6; both unbatched
-      kernels must launch;
+      kernels must launch; then a fresh process runs ``evidence_fn`` at its
+      defaults, and only ``knn_select.cu``'s library may be loaded after it;
    b. device precision: ``evidence_fn(precision="device")`` auto, cross and
       the lattice retry against the same oracle at 1e-6; both must launch;
    c. the Planck grid driver at its defaults on a synthetic Planck-shaped
@@ -105,7 +115,13 @@ fails before printing any result.
    ``pallas_packed``), the warm service requests' ``wall_s``, and the
    grid's per-dataset stage times, each printed with the card's name and
    power limit; the wide kernel at k = 264 / 300 (N=65536, d=8) and
-   d = 65 (N=16384, k=9).
+   d = 65 (N=16384, k=9) beside its plain version, then its sweep with the
+   route of each shape: k = 264 / 300 / 512 / 1024 / 2048 (N=65536, d=8),
+   k = 300 at d = 3, 32, 64 (N=65536), d = 65 / 100 / 128 at k = 9 / 44
+   (N=16384), route B's time beside route A's where both apply; and one
+   yardstick on the ``time`` line only, ``library_pair_ms``: ``torch.cdist``
+   then ``torch.topk`` over query chunks under 2 GB of distances, TF32 off,
+   at k = 264 and 300.
 6. the ring (``parallel/ring.py``): 2 and 4 ranks of one gloo group, each a
    process on the one card (NCCL takes one card a rank), with the library
    built by this process first.  ``sharded_auto_evidence`` refine and fast,
@@ -195,6 +211,22 @@ STUDY_D = {2: ((0.0001, 0.0044), (-0.0021, 0.0041)),
            15: ((0.2952, 0.2953), (0.3916, 0.3917))}
 STUDY_MARGIN = 3.0            # one seed: |lnZ - bias| <= 3 rms
 CPU_ROWS_MAX = 16000          # legs held on the CPU too (see phase 7a)
+# phase 4a's fresh process: the default refine path, then the libraries it
+# loaded and the first call's wall time (the libraries are built already)
+DEFAULT_PATH_LIBRARIES = """
+import json, time
+import chip_smoke
+from mcevidence_tpu_torch import evidence_fn
+from mcevidence_tpu_torch.ops import _build
+theta, lnl = chip_smoke.bench_chain(65536, 8, seed=0)
+t0 = time.perf_counter()
+evidence_fn(theta, lnl, kmax=5, device="cuda")
+print(json.dumps({"loaded": _build.loaded(),
+                  "first_call_s": time.perf_counter() - t0}))
+"""
+# the yardstick of the wide kernel: query chunks whose distance block stays
+# under this many bytes
+LIBRARY_PAIR_BYTES = 2e9
 GPU_EVENT_CATS = ("kernel", "gpu_memcpy", "gpu_memset")
 
 
@@ -589,25 +621,37 @@ def bound(kernel, n, d, k, batch=1):
                                     else "bytes")
 
 
+def body_name(kernel):
+    """A selection body's name from its mangled kernel name: "small
+    Padded<8>", "large Compact<3>", "wide A Padded<8> N=16 warps=16" (the
+    warp-queue body: keys a lane, warps a block), "wide B TruncKey<11>
+    shared" (the list body: key, where its lists live); None for others."""
+    lay = re.search(r"(Padded|Compact)ILi(\d+)E", kernel)
+    kind = ("small" if "small_k_kernel" in kernel else
+            "large" if "large_k_kernel" in kernel else None)
+    if kind and lay:
+        return f"{kind} {lay.group(1)}<{lay.group(2)}>"
+    m = re.search(r"knn_warp_kernelILi(\d+)ELi(\d+)ELi(\d+)E", kernel)
+    if m:
+        return f"wide A Padded<{m.group(1)}> N={m.group(2)} warps={m.group(3)}"
+    m = re.search(r"knn_list_kernelIN3knn(?:8ExactKey|8TruncKeyILi(\d+)EE)"
+                  r"ELb([01])E", kernel)
+    if m:
+        key = f"TruncKey<{m.group(1)}>" if m.group(1) else "ExactKey"
+        return f"wide B {key} {'workspace' if m.group(2) == '1' else 'shared'}"
+    return None
+
+
 def resource_table(log):
     """Max registers and spill bytes of each selection body on each layout
-    (the wide body on each key), from nvcc's ``--resource-usage`` log:
-    "small Padded<8>": {...}, "wide ExactKey": {...}."""
+    (the wide bodies on each key), from nvcc's ``--resource-usage`` log:
+    "small Padded<8>": {...}, "wide A Padded<8> N=16 warps=16": {...}."""
     table, body = {}, None
     for line in log.splitlines():
         m = re.search(r"(?:Function properties for|Compiling entry function)"
                       r"\W*(\w+)", line)
         if m:
-            name = m.group(1)
-            lay = re.search(r"(Padded|Compact)ILi(\d+)E", name)
-            kind = ("small" if "small_k_kernel" in name else
-                    "large" if "large_k_kernel" in name else None)
-            body = (f"{kind} {lay.group(1)}<{lay.group(2)}>"
-                    if kind and lay else None)
-            if "wide_kernel" in name:
-                bits = re.search(r"TruncKeyILi(\d+)E", name)
-                body = (f"wide TruncKey<{bits.group(1)}>" if bits
-                        else "wide ExactKey")
+            body = body_name(m.group(1))
             continue
         if body is None:
             continue
@@ -1163,20 +1207,25 @@ def main():
           cudnn_allow_tf32=torch.backends.cudnn.allow_tf32)
     dev = torch.device("cuda")
 
-    # 2. build
+    # 2. build: the default path's library alone (what a user's first call
+    # waits for), then the others, one nvcc each, all started together; no
+    # library is loaded here (phase 4a reads which ones the default path
+    # loads)
     t0 = time.perf_counter()
-    lib_path = _build.build()
-    _build.load()
-    build_s = time.perf_counter() - t0
-    regs = [int(n) for n in re.findall(r"Used (\d+) registers",
-                                       _build.build_log)]
-    spills = [int(n) for n in re.findall(r"(\d+) bytes spill stores",
-                                         _build.build_log)]
-    phase("build", library=os.path.relpath(lib_path, HERE),
+    _build.build("knn_select")
+    default_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    libraries = _build.build()
+    others_s = time.perf_counter() - t0
+    log = "".join(_build.build_logs[s] for s in sorted(_build.build_logs))
+    regs = [int(n) for n in re.findall(r"Used (\d+) registers", log)]
+    spills = [int(n) for n in re.findall(r"(\d+) bytes spill stores", log)]
+    phase("build", libraries={s: os.path.relpath(p, HERE)
+                              for s, p in libraries.items()},
           max_registers=max(regs, default=None), spill_bytes=sum(spills),
-          bodies=resource_table(_build.build_log),
-          sources=sorted(os.listdir(_build.CSRC)), seconds=build_s,
-          nvcc_seconds=_build.build_seconds,
+          bodies=resource_table(log),
+          sources=sorted(os.listdir(_build.CSRC)),
+          default_library_s=default_s, other_libraries_s=others_s,
           nvcc_seconds_per_source=dict(_build.source_seconds),
           flags=" ".join(_build.NVCC_FLAGS))
 
@@ -1467,7 +1516,11 @@ def main():
                  ("self nr=100 k=300", x[:100], x[:4096], 300, 100),
                  ("cross nr=5993 k=300", qx[:2000], xw, 300, 5993),
                  ("self nr=60000 garbage 1e8 k=264", garbage[:60000],
-                  garbage, 264, 60000)]
+                  garbage, 264, 60000),
+                 # route B's lists in the global workspace, its query rows
+                 # launched in chunks
+                 ("self N=12000 d=8 k=9000 workspace", x[:12000], None, 9000,
+                  None)]
     for d in (65, 100, 128):
         xd_ = cu(rng.normal(size=(8192, d)))
         qd_ = cu(rng.normal(size=(2048, d)))
@@ -1516,8 +1569,47 @@ def main():
               f"k={k}", identical=same, ok=same)
         if not same:
             raise AssertionError(f"wide k={k}: not the bodies' bits")
+    # the warp queue's edges (512 and 1024 keys a row; route B past 1024
+    # kept keys and for truncated keys), batched with heterogeneous counts
+    # (a member whose query rows cut a block, one with fewer reference rows
+    # than k), self and cross
+    for d in (3, 8, 32, 64):
+        qe3 = cu(rng.normal(size=(3, 1200, d)))
+        re3 = cu(rng.normal(size=(3, 1300, d)))
+        for k in (257, 511, 512, 513, 1023, 1024, 1025):
+            for self_mode, nr3, nq3 in ((True, [1200, 1037, 600],
+                                         [1200, 1037, 600]),
+                                        (False, [1300, 1037, 600],
+                                         [1200, 333, 17])):
+                for lb in (0, 11, 12) if d in (8, 64) else (0,):
+                    route = kh.wide_plan(d, k - self_mode, lb).route
+                    errs["knn_select_wide"].append(compare_batched(
+                        f"wide edge route {route} "
+                        f"{'self' if self_mode else 'cross'} B=3 d={d} "
+                        f"k={k} nr={nr3} nq={nq3}", qe3,
+                        qe3 if self_mode else re3, k, self_mode, nr3, nq3,
+                        kernel=functools.partial(wide, low_bits=lb),
+                        returned=True, low_bits=lb))
+    # where both routes apply (exact keys, d <= 64, keep <= 1024) they
+    # return the same bits
+    for name, q, r, k in [
+            ("self N=16384 d=8 k=300", xw, None, 300),
+            ("self N=8192 d=8 k=1024", x[:8192], None, 1024),
+            ("cross Nq=4096 Nr=16384 d=8 k=512", qx[:4096], xw, 512),
+            ("self N=8192 d=64 k=700", cu(rng.normal(size=(8192, 64))), None,
+             700)]:
+        self_mode = r is None
+        r = q if r is None else r
+        same = all(torch.equal(a, b) for a, b in zip(
+            wide(q, r, k, self_mode=self_mode),
+            kh._launch_wide(q, r, k, self_mode, None, None, 0, True,
+                            route="B")))
+        phase("kernel_vs_route", leg=f"wide route A vs route B {name}",
+              identical=same, ok=same)
+        if not same:
+            raise AssertionError(f"wide {name}: the routes differ")
     del xd, garbage, qx, rx, q8, r8, qd, qq, rr, qc, xs, qs, g7, d3, qd3, xp
-    del xe, re_, one, xw, xd_, qd_, onew, q3w, qb65
+    del xe, re_, one, xw, xd_, qd_, onew, q3w, qb65, qe3, re3
     torch.cuda.empty_cache()
 
     total = {n: 0 for n in KERNELS}
@@ -1548,6 +1640,19 @@ def main():
     hold_to_oracle("main_cross", cross, oracles["cross"])
     hold_to_oracle("main_retry", retry, oracles["retry"])
     phase("cli", auto=cli_auto, cross=cli_cross, ok=True)
+    # which libraries the default refine path loads: a fresh process (this
+    # one loaded every library in phase 3) runs it at its defaults
+    proc = subprocess.run([sys.executable, "-c", DEFAULT_PATH_LIBRARIES],
+                          capture_output=True, text=True, cwd=HERE,
+                          timeout=600)
+    if proc.returncode != 0:
+        raise AssertionError(f"default path libraries: exit "
+                             f"{proc.returncode}\n{proc.stderr[-3000:]}")
+    loaded = json.loads(proc.stdout.strip().splitlines()[-1])
+    ok = loaded["loaded"] == ["knn_select"]
+    phase("libraries_after_default_refine", **loaded, ok=ok)
+    if not ok:
+        raise AssertionError(f"the default refine path loaded {loaded}")
 
     # 4b. device precision
     with Counted("device evidence_fn", total) as c:
@@ -1938,6 +2043,44 @@ def main():
                       share_of_bound=b_ms / ms,
                       pairs_per_s=65536.0 ** 2 / (ms * 1e-3), gpu=smi)
     del xs[32]
+    # the wide kernel across k and d, each shape with its route, and route B
+    # beside route A where both apply (the routing rule's crossover)
+    xw_ = {d: cu(rng.normal(size=(65536, d))) for d in (3, 32, 64)}
+    xw_.update({d: cu(rng.normal(size=(16384, d))) for d in (65, 100, 128)})
+    for q, d, k in ([(x, 8, k) for k in (264, 300, 512, 1024, 2048)]
+                    + [(xw_[d], d, 300) for d in (3, 32, 64)]
+                    + [(xw_[d], d, k) for d in (65, 100, 128)
+                       for k in (9, 44)]):
+        n = q.shape[0]
+        route = kh.wide_plan(d, k - 1).route
+        ms = cuda_ms(lambda: kh.knn_select_wide(q, q, k, self_mode=True))
+        b_ms, b_by = bound("knn_select_wide", n, d, k)
+        extra = {}
+        if route == "A":
+            extra["route_b_ms"] = cuda_ms(lambda: kh._launch_wide(
+                q, q, k, True, None, None, 0, True, route="B"))
+        phase("time", kernel="knn_select_wide",
+              shape=f"self N={n} d={d} k={k} (sweep)", route=route, ms=ms,
+              plain_ms=None, bound_ms=b_ms, bound_by=b_by,
+              share_of_bound=b_ms / ms, pairs_per_s=float(n) ** 2 / (
+                  ms * 1e-3), **extra, gpu=smi)
+    del xw_
+
+    # the yardstick: one library pair (torch.cdist, then torch.topk) on
+    # query chunks, TF32 off; never called by the port
+    def library_pair(q, k):
+        rows = max(1, int(LIBRARY_PAIR_BYTES // (q.shape[0] * 4)))
+        for lo in range(0, q.shape[0], rows):
+            torch.topk(torch.cdist(q[lo:lo + rows], q), k, dim=1,
+                       largest=False)
+
+    for k in (264, 300):
+        phase("time", kernel="knn_select_wide",
+              shape=f"self N=65536 d=8 k={k} (library pair)",
+              library_pair_ms=cuda_ms(lambda: library_pair(x, k), reps=3),
+              library_pair="torch.cdist then torch.topk(largest=False), "
+                           "query chunks under 2 GB of distances, TF32 off",
+              gpu=smi)
     # the prologue study's own path (scripts/bench_prologue.py's main): a
     # gate against K1's function without the cuts, then each variant timed
     # at its operating points (:196-210) beside that function and the
@@ -2095,15 +2238,19 @@ def main():
          "also_replaces": f"{pallas}:398 {pallas}:275"},
         {"name": "knn_select_prologue", "entry": csrc + "knn_packed.cu",
          "replaces": "scripts/bench_prologue.py:65"},
-        # its own body: the cover of K2/K4/K6's shapes past the two bodies
+        # its own bodies, the warp-queue body built from the large-k body's
+        # parts on knn_padded.cuh's rows: the cover of K2/K4/K6's shapes
+        # past the two bodies
         {"name": "knn_select_wide", "entry": csrc + "knn_wide.cu",
-         "body": csrc + "knn_wide.cu", "replaces": f"{pallas}:892",
+         "body": csrc + "knn_wide.cu", "headers": [csrc + "knn_padded.cuh"],
+         "replaces": f"{pallas}:892",
          "also_replaces": f"{pallas}:151 {pallas}:258"},
     ]
     for kern in kernels:
         src = kern.pop("body", body)
         kern.update(route="cuda", source=src,
-                    sources=sorted({src, body, kern.pop("entry")}))
+                    sources=sorted({src, body, kern.pop("entry"),
+                                    *kern.pop("headers", [])}))
         nm = kern["name"]
         ms, plain_ms, b_ms, b_by = times[nm]
         # no single PyTorch call selects k nearest neighbours

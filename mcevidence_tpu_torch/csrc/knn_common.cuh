@@ -7,9 +7,11 @@
 //   knn_smalld.cu  Compact<D>: rows of exactly D <= 16 columns; exact keys
 //   knn_packed.cu  Padded<DP>; truncated keys (TruncKey<B>), and the
 //                  prologue-cut small-k body
-// so the sources compile in parallel.  knn_wide.cu holds a third, simpler
-// body of its own for the shapes past these bodies' limits (k > 256, or
-// rows wider than 64 columns), on the same keys and the same contract.
+// Each source builds into a library of its own (ops/_build.py), loaded at
+// the first call of one of its entry points.  knn_wide.cu holds the bodies
+// for the shapes past these bodies' limits (k > 256, or rows wider than 64
+// columns), on the same keys and the same contract: a warp-queue body
+// built from the large-k body's parts, and a list body for a runtime width.
 //
 // Shared contract (the same as the TPU kernels they replace), per batch
 // member b = blockIdx.y of a batch of B members laid out back to back:
@@ -808,3 +810,9 @@ inline cudaError_t run(Dispatch d, const float* q, const float* r, int batch,
 }
 
 }  // namespace knn
+
+// Every library holds one source, which includes this header once, and
+// exports the message of each cudaError_t code its entry points return.
+extern "C" const char* knn_error_string(int code) {
+    return cudaGetErrorString(static_cast<cudaError_t>(code));
+}

@@ -68,8 +68,4 @@ int knn_select_large_k(const float* q, const float* r, int batch, int q_rows,
                                      device));
 }
 
-const char* knn_error_string(int code) {
-    return cudaGetErrorString(static_cast<cudaError_t>(code));
-}
-
 }  // extern "C"

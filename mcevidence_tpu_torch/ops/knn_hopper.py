@@ -27,11 +27,12 @@ the ``pallas_smalld`` engine) wraps those of ``csrc/knn_smalld.cu``, which
 sweep only the d <= 16 true coordinates of an unpadded layout;
 ``knn_select_packed`` (K6/K7, and K1 as a forced engine) and
 ``knn_select_prologue`` (the prologue study S1) wrap those of
-``csrc/knn_packed.cu``.  ``knn_select_wide`` wraps the kernel of
-``csrc/knn_wide.cu``: one exact (or truncated-key) selection for any k and
-any width, where every other wrapper routes its inputs past the two bodies'
-limits (k > ``LARGE_K_MAX`` candidates, or d > ``D_MAX`` columns), so the
-card answers every shape the JAX package answers.  A wrapper given CPU
+``csrc/knn_packed.cu``.  ``knn_select_wide`` wraps the kernels of
+``csrc/knn_wide.cu`` (a warp-queue body and a list body): one exact (or
+truncated-key) selection for any k and any width, where every other
+wrapper routes its inputs past the two bodies' limits (k >
+``LARGE_K_MAX`` candidates, or d > ``D_MAX`` columns), so the card answers
+every shape the JAX package answers.  A wrapper given CPU
 tensors returns the plain version; given CUDA tensors it launches its
 kernel or raises.  Each wrapper counts its launches in
 ``<wrapper>.launches``.
@@ -53,7 +54,7 @@ TPU's packed kernels do; the plain version does the same with
 
 from __future__ import annotations
 
-from typing import Optional, Sequence, Tuple, Union
+from typing import NamedTuple, Optional, Sequence, Tuple, Union
 
 import torch
 
@@ -249,7 +250,7 @@ def _call(entry: str, q, r, d2, idx, *, batch, q_rows, r_rows, nq_dev,
     after ``device``); raises on a non-zero cudaError_t."""
     from . import _build
     dev = q.device
-    lib = _build.load()
+    lib = _build.load_entry(entry)
     args = [q.data_ptr(), r.data_ptr(), batch, q_rows, r_rows,
             None if nq_dev is None else nq_dev.data_ptr(),
             None if nr_dev is None else nr_dev.data_ptr(), nr_all, dp, k,
@@ -528,37 +529,71 @@ def knn_select_packed(query: torch.Tensor, ref: torch.Tensor, k: int, *,
     return d2, idx
 
 
-# the wide kernel's layout (csrc/knn_wide.cu): kWideMinKeys, the block's
-# warps, the floats of its shared tile and query chunk, and the shared
-# memory a block may take
-WIDE_MIN_KEYS = 64
-WIDE_WARPS = 8
-_WIDE_TILE_FLOATS = 32 * (256 + 1)
+# the wide kernels' layouts (csrc/knn_wide.cu).  Route A, the warp-queue
+# body: exact keys, d <= D_MAX, at most WARP_QUEUE_MAX kept keys, in a warp
+# queue of 16 or 32 keys a lane.  Route B, the list body:
+# LIST_QUERIES query rows a warp, lists of at least LIST_MIN_KEYS keys, up
+# to LIST_MAX_WARPS warps a block, two stages of a 256-row by 32-coordinate
+# tile, and the shared memory a block may take.
+WARP_QUEUE_MAX = 1024
+LIST_QUERIES = 2
+LIST_MIN_KEYS = 64
+LIST_MAX_WARPS = 16
+_LIST_STAGE_FLOATS = 2 * 32 * (256 + 1)
 _WIDE_SHARED_MAX = 227 * 1024
 # bytes of the global lists one launch may use when they leave shared memory
 _WIDE_WORKSPACE_BYTES = 1 << 28
 
 
-def _wide_shared_bytes(kp: int, warps: int, global_keys: bool) -> int:
-    keys = 0 if global_keys else warps * 2 * kp * 8
-    return keys + (_WIDE_TILE_FLOATS + warps * 32) * 4
+class WidePlan(NamedTuple):
+    """How ``knn_select_wide`` launches: ``route`` "A" (the warp-queue
+    body) or "B" (the list body); ``width`` the columns the rows are laid
+    out in (A: the ``Padded`` width, B: d); ``kp`` the keys a row keeps
+    (A: the warp queue's, 32 for each key a lane holds; B: a list's);
+    ``warps`` B's warps a block (0 for A, whose body fixes them);
+    ``workspace`` whether B's lists go to a global workspace."""
+    route: str
+    width: int
+    kp: int
+    warps: int
+    workspace: bool
 
 
-def wide_plan(keep: int) -> Tuple[int, int, bool]:
-    """(kp, warps, workspace) of the wide kernel for ``keep`` kept keys a
-    query row: kp is ``keep`` rounded up to a power of two (at least
-    ``WIDE_MIN_KEYS``); ``WIDE_WARPS`` query rows a block, fewer when their
-    lists of 2 kp keys would not fit beside the tile; and whether the lists
-    go to a global workspace (past 8192 keys a row)."""
-    kp = WIDE_MIN_KEYS
+def _list_shared_bytes(d: int, kp: int, warps: int, workspace: bool) -> int:
+    keys = 0 if workspace else warps * LIST_QUERIES * 2 * kp * 8
+    query = warps * LIST_QUERIES * (-(-d // 4) * 4)
+    return keys + (_LIST_STAGE_FLOATS + query) * 4
+
+
+def wide_plan(d: int, keep: int, low_bits: int = 0,
+              route: Optional[str] = None) -> WidePlan:
+    """The wide selection's launch for rows of d columns, ``keep`` kept
+    keys a query row (k less the self slot) and ``low_bits``.
+
+    Route A takes exact keys at d <= ``D_MAX`` and keep <=
+    ``WARP_QUEUE_MAX``: 16 keys a lane to 512 keys, else 32.  Route B takes
+    the rest (``route="B"`` forces it, for the tests that hold the two
+    routes to each other): kp is ``keep`` rounded up to a power of two (at
+    least ``LIST_MIN_KEYS``), with the most warps (16, 8, 4, 2, 1) whose
+    lists, tiles and staged query rows fit a block's shared memory; where
+    not even one warp's lists fit, the lists go to a global workspace."""
+    keep = max(keep, 1)
+    if (route != "B" and low_bits == 0 and d <= D_MAX
+            and keep <= WARP_QUEUE_MAX):
+        dp = _padded_width(d)
+        n = 16 if keep <= 512 else 32
+        return WidePlan("A", dp, 32 * n, 0, False)
+    kp = LIST_MIN_KEYS
     while kp < keep:
         kp *= 2
-    warps = WIDE_WARPS
-    while warps > 1 and _wide_shared_bytes(kp, warps, False) > _WIDE_SHARED_MAX:
-        warps //= 2
-    if _wide_shared_bytes(kp, warps, False) <= _WIDE_SHARED_MAX:
-        return kp, warps, False
-    return kp, WIDE_WARPS, True
+    for workspace in (False, True):
+        warps = LIST_MAX_WARPS
+        while warps >= 1:
+            if _list_shared_bytes(d, kp, warps, workspace) <= _WIDE_SHARED_MAX:
+                return WidePlan("B", d, kp, warps, workspace)
+            warps //= 2
+    raise ValueError(f"rows of d={d} columns are too wide for the wide "
+                     f"selection's staged query rows")
 
 
 def knn_select_wide(query: torch.Tensor, ref: torch.Tensor, k: int, *,
@@ -566,17 +601,19 @@ def knn_select_wide(query: torch.Tensor, ref: torch.Tensor, k: int, *,
                     nq: Counts = None, low_bits: int = 0,
                     center: bool = True
                     ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Wide selection, the kernel of ``csrc/knn_wide.cu``: any k and any
+    """Wide selection, the kernels of ``csrc/knn_wide.cu``: any k and any
     width d, 2-D (query (Nq, d), ref (Nr, d), host count ``nr``) or batched
-    ((B, Nq, d), (B, Nr, d), per-member ``nr`` and ``nq``), on rows of
-    exactly d columns.  ``low_bits`` 0 ranks exactly; 11 or 12 rank by the
-    packed selections' truncated keys and return the truncated d2.  One
-    warp a query row keeps its k smallest keys in a sorted list fed by a
-    buffer of candidates under the k-th key; lists past 8192 keys live in a
-    global workspace, with the query rows launched in chunks that keep it
-    within ``_WIDE_WORKSPACE_BYTES``.  Its plain version is
-    ``knn_select_torch`` / ``knn_select_torch_batched`` with the same
-    ``low_bits``."""
+    ((B, Nq, d), (B, Nr, d), per-member ``nr`` and ``nq``).  ``low_bits`` 0
+    ranks exactly; 11 or 12 rank by the packed selections' truncated keys
+    and return the truncated d2.  ``wide_plan`` picks the route: exact keys
+    at d <= ``D_MAX`` and up to ``WARP_QUEUE_MAX`` kept keys take the
+    warp-queue body (WarpSelect with 16 or 32 keys a lane, rows padded to
+    the ``Padded`` width); the rest take the list body (rows of exactly d
+    columns, a sorted list and a buffer a query row; lists that do not fit
+    shared memory live in a global workspace, with the query rows launched
+    in chunks that keep it within ``_WIDE_WORKSPACE_BYTES``).  Both routes
+    return the same bits.  Its plain version is ``knn_select_torch`` /
+    ``knn_select_torch_batched`` with the same ``low_bits``."""
     if low_bits not in (0,) + PACKED_LOW_BITS:
         raise ValueError(f"low_bits must be 0 or one of {PACKED_LOW_BITS}, "
                          f"got {low_bits}")
@@ -597,44 +634,53 @@ def knn_select_wide(query: torch.Tensor, ref: torch.Tensor, k: int, *,
                                             low_bits=low_bits, center=center)
         return knn_select_torch(query, ref, k, self_mode=self_mode, nr=nr,
                                 low_bits=low_bits, center=center)
+    return _launch_wide(query, ref, k, self_mode, nr, nq, low_bits, center)
+
+
+def _launch_wide(query, ref, k, self_mode, nr, nq, low_bits, center,
+                 route=None):
+    """``knn_select_wide`` on checked CUDA tensors; ``route`` "B" forces
+    the list body."""
     dev = query.device
     d = query.shape[-1]
-    if batched:
+    nr_alloc = ref.shape[-2]
+    k = min(k, nr_alloc)
+    plan = wide_plan(d, k - int(self_mode), low_bits, route)
+    if query.dim() == 3:
         bsz, nq_alloc, _ = query.shape
-        nr_alloc = ref.shape[1]
-        nr_b = _member_counts(nr, bsz, nr_alloc, "nr")
-        nq_b = _member_counts(nq, bsz, nq_alloc, "nq")
-        nr_dev = torch.tensor(nr_b, dtype=torch.int32, device=dev)
-        nq_dev = torch.tensor(nq_b, dtype=torch.int32, device=dev)
-        q, r = _centred_batched(query, ref, nr_dev, d, self_mode, center)
+        nr_dev = torch.tensor(_member_counts(nr, bsz, nr_alloc, "nr"),
+                              dtype=torch.int32, device=dev)
+        nq_dev = torch.tensor(_member_counts(nq, bsz, nq_alloc, "nq"),
+                              dtype=torch.int32, device=dev)
+        q, r = _centred_batched(query, ref, nr_dev, plan.width, self_mode,
+                                center)
         r_rows = nr_all = nr_alloc
+        shape = (bsz, nq_alloc, k)
     else:
         bsz, nq_alloc = 1, query.shape[0]
-        nr_alloc = ref.shape[0]
         nr_all = _valid_count(ref, nr)
         nq_dev = nr_dev = None
-        q, r = _centred(query, ref, nr_all, d, self_mode, center)
+        q, r = _centred(query, ref, nr_all, plan.width, self_mode, center)
         r_rows = nr_all
-    k = min(k, nr_alloc)
-    shape = (bsz, nq_alloc, k) if batched else (nq_alloc, k)
+        shape = (nq_alloc, k)
     d2 = torch.empty(shape, dtype=torch.float32, device=dev)
     idx = torch.empty(shape, dtype=torch.int32, device=dev)
     if bsz == 0 or nq_alloc == 0 or k == 0:
         return d2, idx
-    kp, warps, global_keys = wide_plan(max(k - int(self_mode), 1))
     chunk, work = nq_alloc, None
-    if global_keys:
-        chunk = max(warps, _WIDE_WORKSPACE_BYTES // (bsz * 16 * kp)
-                    // warps * warps)
-        work = torch.empty((bsz, min(chunk, nq_alloc), 2 * kp),
+    if plan.workspace:
+        rows = plan.warps * LIST_QUERIES
+        chunk = max(rows, _WIDE_WORKSPACE_BYTES // (bsz * 16 * plan.kp)
+                    // rows * rows)
+        work = torch.empty((bsz, min(chunk, nq_alloc), 2 * plan.kp),
                            dtype=torch.int64, device=dev)
     for row0 in range(0, nq_alloc, chunk):
         row1 = min(nq_alloc, row0 + chunk)
         _call("knn_select_wide", q, r, d2, idx, batch=bsz, q_rows=nq_alloc,
               r_rows=r_rows, nq_dev=nq_dev, nr_dev=nr_dev, nr_all=nr_all,
-              dp=d, k=k, self_mode=self_mode,
-              extra=(low_bits, kp, warps, row0, row1,
-                     None if work is None else work.data_ptr()))
+              dp=plan.width, k=k, self_mode=self_mode,
+              extra=(low_bits, "AB".index(plan.route), plan.kp, plan.warps,
+                     row0, row1, None if work is None else work.data_ptr()))
         knn_select_wide.launches += 1
     return d2, idx
 

@@ -438,24 +438,39 @@ def test_failed_build_raises_with_compiler_output(monkeypatch, tmp_path):
     monkeypatch.setattr(_build, "BUILD_DIR", str(tmp_path / "build"))
     with pytest.raises(RuntimeError, match="no sm_90a here"):
         _build.build()
+    with pytest.raises(RuntimeError, match="no sm_90a here"):
+        _build.build("knn_select")
     assert not list((tmp_path / "build").iterdir())
 
 
-def test_concurrent_builds_run_one_nvcc(monkeypatch, tmp_path):
-    """Processes or threads that start building together wait on the lock
-    beside the library and take the one build: one compile a source."""
-    import threading
+def _fake_nvcc(tmp_path, fail_on=None):
+    """A stand-in nvcc that logs each call, waits a little and writes the
+    file after ``-o``; it fails on a source whose path ends in ``fail_on``."""
     log = tmp_path / "calls"
     script = tmp_path / "fake_nvcc"
+    fail = (f'  case "$1" in *{fail_on}) echo "error: {fail_on}" >&2; '
+            'exit 3;; esac\n') if fail_on else ""
     script.write_text(
         "#!/bin/sh\n"
         f"echo x >> {log}\n"
         "sleep 0.3\n"
+        "out=\n"
         "while [ $# -gt 0 ]; do\n"
-        "  if [ \"$1\" = -o ]; then shift; : > \"$1\"; fi\n"
+        f"{fail}"
+        "  if [ \"$1\" = -o ]; then shift; out=$1; fi\n"
         "  shift\n"
-        "done\n")
+        "done\n"
+        ": > \"$out\"\n")
     script.chmod(0o755)
+    return script, log
+
+
+def test_concurrent_builds_run_one_nvcc(monkeypatch, tmp_path):
+    """Processes or threads that start building together wait on the lock
+    beside each library and take the one build: one nvcc run a source, one
+    library a source."""
+    import threading
+    script, log = _fake_nvcc(tmp_path)
     monkeypatch.setattr(_build, "find_nvcc", lambda: str(script))
     monkeypatch.setattr(_build, "BUILD_DIR", str(tmp_path / "build"))
     paths = []
@@ -465,11 +480,87 @@ def test_concurrent_builds_run_one_nvcc(monkeypatch, tmp_path):
         t.start()
     for t in threads:
         t.join(60)
-    assert len(paths) == 3 and len(set(paths)) == 1
+    assert not any(t.is_alive() for t in threads)
+    assert len(paths) == 3 and all(p == paths[0] for p in paths)
+    assert sorted(paths[0]) == _build.sources()
     calls = log.read_text().split()
-    assert len(calls) == len(_build._sources()) + 1      # compiles + link
-    assert sorted(p.name for p in (tmp_path / "build").iterdir()) == [
-        os.path.basename(paths[0])]
+    assert len(calls) == len(_build.sources())     # one nvcc a source
+    assert sorted(p.name for p in (tmp_path / "build").iterdir()) == sorted(
+        os.path.basename(p) for p in paths[0].values())
+
+
+def test_a_source_library_path_ignores_the_other_sources(monkeypatch,
+                                                         tmp_path):
+    """Each library is hashed on its own source, the headers and the flags:
+    editing knn_wide.cu leaves knn_select.cu's library where it was, and
+    editing a header moves both."""
+    import shutil
+    csrc = tmp_path / "csrc"
+    shutil.copytree(_build.CSRC, csrc,
+                    ignore=shutil.ignore_patterns("_build"))
+    monkeypatch.setattr(_build, "CSRC", str(csrc))
+    select, wide = (_build.library_path(s) for s in ("knn_select",
+                                                     "knn_wide"))
+    assert os.path.basename(select).startswith("libknn_select_")
+    with open(csrc / "knn_wide.cu", "a") as fh:
+        fh.write("// an edit\n")
+    assert _build.library_path("knn_select") == select
+    assert _build.library_path("knn_wide") != wide
+    wide = _build.library_path("knn_wide")
+    with open(csrc / "knn_common.cuh", "a") as fh:
+        fh.write("// an edit\n")
+    assert _build.library_path("knn_select") != select
+    assert _build.library_path("knn_wide") != wide
+    with pytest.raises(ValueError, match="no CUDA source"):
+        _build.library_path("knn_missing")
+
+
+def test_every_entry_point_maps_to_the_one_source_that_defines_it():
+    import re
+    defined = {}
+    for src in _build.sources():
+        with open(os.path.join(_build.CSRC, f"{src}.cu")) as fh:
+            for name in re.findall(r"^int (knn_\w+)\(", fh.read(), re.M):
+                defined.setdefault(name, []).append(src)
+    names = (_build.ENTRY_POINTS + _build.ENTRY_POINTS_EXTRA
+             + _build.ENTRY_POINTS_WIDE)
+    assert sorted(names) == sorted(_build.ENTRY_SOURCES) == sorted(defined)
+    for name in names:
+        assert defined[name] == [_build.ENTRY_SOURCES[name]]
+
+
+def test_a_failed_source_leaves_the_others_loadable(monkeypatch, tmp_path):
+    """knn_wide.cu fails to build: its entry points raise with nvcc's
+    output, and the other sources still build and load."""
+    script, _ = _fake_nvcc(tmp_path, fail_on="knn_wide.cu")
+    monkeypatch.setattr(_build, "find_nvcc", lambda: str(script))
+    monkeypatch.setattr(_build, "BUILD_DIR", str(tmp_path / "build"))
+    monkeypatch.setattr(_build, "_libs", {})
+    opened = []
+
+    class FakeLib:
+        def __init__(self, path):
+            opened.append(os.path.basename(path))
+
+        def __getattr__(self, name):
+            fn = type("Fn", (), {})()
+            setattr(self, name, fn)
+            return fn
+
+    monkeypatch.setattr(_build.ctypes, "CDLL", FakeLib)
+    with pytest.raises(RuntimeError, match="error: knn_wide.cu"):
+        _build.build()
+    built = sorted(p.name for p in (tmp_path / "build").iterdir())
+    assert built == sorted(os.path.basename(_build.library_path(s))
+                           for s in _build.sources() if s != "knn_wide")
+    with pytest.raises(RuntimeError, match="error: knn_wide.cu"):
+        _build.load_entry("knn_select_wide")
+    assert _build.load_entry("knn_select_small_k") is _build.load(
+        "knn_select")
+    _build.load_entry("knn_select_packed_large_k")
+    assert _build.loaded() == ["knn_packed", "knn_select"]
+    assert opened == [os.path.basename(_build.library_path(s))
+                      for s in ("knn_select", "knn_packed")]
 
 
 # --- on the card ----------------------------------------------------------
