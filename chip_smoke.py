@@ -164,6 +164,29 @@ fails before printing any result.
       the untraced call; each Chrome trace read back for its CUDA kernel
       time by name, its window and the device-busy share of that window
       (no CUDA kernel event fails the leg).
+8. the benchmark harnesses as a user runs them, child processes of
+   ``python -m mcevidence_tpu_torch.<module>`` from the checkout:
+   a. ``bench`` at its defaults (bench.py's workload, N=65536, d=8,
+      kmax=5, 8 runs a timed attempt, 3 attempts): its last line must
+      carry bench.py's schema with ``value`` > 0, ``backend`` "cuda",
+      ``timed_kernel`` "pallas_packed2", ``knn_select_packed`` launched at
+      least runs x attempts times, no CUDA tensor on the plain selection,
+      |dlnZ| against the CPU baseline's f64 oracle within 3e-3 (timed
+      kernel, fast) and 1e-6 (device), and no part of refine's
+      ``refine_split_s`` (the parts of one ``exact_knn`` call) below 0;
+      its launches join the main paths' totals.  Then the timed step's 8
+      runs in this process under ``torch.profiler``: the device-busy share
+      of their window and the CUDA runtime calls that wait (synchronizes,
+      copies).
+   b. ``bench_serve 2 --clients 1,2`` at ``MCE_SERVE_BENCH_SIZES=
+      2000,8000,65536``: every response ``ok`` and in request order.  A
+      smoke run of the stream: with 2 requests a size its p50 and p95 are
+      one warm request each, and each K's wall is 8 requests; latencies
+      come from ``bench_serve`` at its defaults.
+   c. ``bench_grid`` on ``write_grid``'s grid, 2 runs in one process, in
+      AllChains and with ``-nc 4``: exit 0, and every run's tables within
+      1e-6 of ``planck``'s per-cell refine tables of that mode.
+   The phase takes 65-95 s on one H100 (six child processes).
 
 The line before the last is a JSON object of the kernels; the last line is
 ``{"ok": true, "device": {...}}``.
@@ -535,7 +558,9 @@ def hold_to_oracle(name, got, want, tol=DLNZ_TOL):
 
 
 class Counted:
-    """Launch counts of one main path: set to 0 on entry, read on exit."""
+    """Launch counts of one main path: set to 0 on entry, read on exit,
+    with the count of CUDA tensors that reached the plain selection
+    (``plain_on_card``)."""
 
     def __init__(self, name, total):
         self.name, self.total = name, total
@@ -548,6 +573,7 @@ class Counted:
 
     def __exit__(self, *exc):
         self.counts = {n: getattr(self.kh, n).launches for n in KERNELS}
+        self.plain_on_card = self.kh.plain_cuda_calls
         if exc[0] is None:
             phase("launches", path=self.name, **self.counts)
             for n, c in self.counts.items():
@@ -696,27 +722,6 @@ def ring_call(fn, *args, **kwargs):
     sync()
     return (out, {n: getattr(kh, n).launches for n in KERNELS},
             time.perf_counter() - t0)
-
-
-@contextlib.contextmanager
-def no_plain_on_card():
-    """Fail if a CUDA tensor reaches the plain selection meanwhile (the
-    card must answer past the old limits with a kernel)."""
-    from mcevidence_tpu_torch.ops import knn as knn_mod, knn_hopper as kh
-    real = kh.knn_select_torch
-    seen = []
-
-    def guard(query, *args, **kwargs):
-        if query.is_cuda:
-            seen.append(tuple(query.shape))
-        return real(query, *args, **kwargs)
-    kh.knn_select_torch = knn_mod.knn_select_torch = guard
-    try:
-        yield seen
-    finally:
-        kh.knn_select_torch = knn_mod.knn_select_torch = real
-    if seen:
-        raise AssertionError(f"the plain selection ran on the card: {seen}")
 
 
 def free_port():
@@ -1184,6 +1189,191 @@ def validation_phase(total, smi, theta, lnl, dev="cuda", scale=1):
           nuts_s=sum(r[3] for r in nuts_runs.values()), cli_s=cli_s,
           trace_s=time.perf_counter() - t0,
           total_s=time.perf_counter() - t_phase, cpu_leg_s=cpu_s, gpu=smi)
+
+
+# 8a's bench line: bench.py's schema (bench.py:368-385) under the port's
+# names, and the fields the port adds
+BENCH_FIELDS = ("metric", "value", "unit", "vs_baseline", "timed_rep_walls_s",
+                "device_wall_s", "sklearn_cpu_wall_s", "baseline_impl",
+                "backend", "gpu", "workload",
+                "max_abs_dlnz_vs_f64_oracle_timed_kernel", "timed_kernel",
+                "max_abs_dlnz_vs_f64_oracle_fast_mode",
+                "max_abs_dlnz_vs_f64_oracle_device_mode",
+                "device_mode_wall_s_incl_host_prep", "evidence_fn_wall_s",
+                "refine_split_s", "launches")
+# 8b's stream: three of bench_serve's sizes, 2 requests a size
+SERVE_BENCH_SIZES = "2000,8000,65536"
+# CUDA runtime calls of a trace that wait for the card, or may
+RUNTIME_WAITS = ("Synchronize", "cudaMemcpy")
+
+
+def harness(module, args, env=None, timeout=900):
+    """``python -m mcevidence_tpu_torch.<module> *args`` as a child process
+    from the checkout; returns (exit code, last stdout line as JSON or None,
+    stdout, stderr, seconds)."""
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", f"mcevidence_tpu_torch.{module}", *args],
+        capture_output=True, text=True, cwd=HERE, timeout=timeout,
+        env=dict(os.environ, **(env or {})))
+    seconds = time.perf_counter() - t0
+    lines = proc.stdout.strip().splitlines()
+    try:
+        line = json.loads(lines[-1]) if lines else None
+    except json.JSONDecodeError:
+        line = None
+    return proc.returncode, line, proc.stdout, proc.stderr, seconds
+
+
+def runtime_waits(path):
+    """The CUDA runtime calls of a Chrome trace that wait for the card or
+    may (synchronizes and copies), counted by name and by the innermost
+    operator that issued them ("<call> in <operator>")."""
+    with open(path) as fh:
+        events = [e for e in json.load(fh)["traceEvents"]
+                  if e.get("ph") == "X" and "dur" in e]
+    ops = [e for e in events if e.get("cat") == "cpu_op"]
+    calls = {}
+    for e in events:
+        if e.get("cat") != "cuda_runtime" or not any(
+                w in e.get("name", "") for w in RUNTIME_WAITS):
+            continue
+        t = float(e["ts"])
+        inside = [o for o in ops if o.get("tid") == e.get("tid")
+                  and float(o["ts"]) <= t <= float(o["ts"]) + float(o["dur"])]
+        op = min(inside, key=lambda o: float(o["dur"]))["name"] \
+            if inside else "no operator"
+        key = f"{e['name']} in {op}"
+        calls[key] = calls.get(key, 0) + 1
+    return calls
+
+
+def bench_phase(total, smi, dev="cuda", env=None, refs=None):
+    """8. The benchmark harnesses through the user's entry points, as child
+    processes: ``mcevidence_tpu_torch.bench`` at its defaults (8a, with a
+    profiler trace of its timed step in this process), ``bench_serve``
+    (8b) and ``bench_grid`` on the synthetic grid (8c), held to the
+    ``planck``'s per-cell refine tables of each mode: ``refs`` (phase 4c's, of
+    the same grid, keyed "AllChains" and "-nc 4"), or computed here.
+    ``dev="cpu"`` with ``env`` (the harnesses' size overrides) rehearses the
+    phase's control flow on a host without a card."""
+    from mcevidence_tpu_torch import bench, planck
+    on_card = dev != "cpu"
+    dev_args = [] if on_card else ["--device", "cpu"]
+    t_phase = time.perf_counter()
+
+    # 8a. the bench line, held to its gates
+    rc, line, out, err, child_s = harness("bench", dev_args, env)
+    if rc != 0 or line is None or "error" in line:
+        raise AssertionError(f"bench: exit {rc}, line {line}\n"
+                             f"{err[-3000:]}")
+    reps = int(line["workload"].rsplit("reps=", 1)[1])
+    attempts = len(line["timed_rep_walls_s"])
+    launches = line["launches"]
+    gates = {
+        "schema": all(f in line for f in BENCH_FIELDS),
+        "value": line["value"] > 0,
+        "backend": line["backend"] == ("cuda" if on_card else "cpu"),
+        "timed_kernel": line["timed_kernel"] == (
+            bench.TIMED_ENGINE if on_card else "plain"),
+        "timed_launches": (not on_card or launches["knn_select_packed"]
+                           >= reps * attempts),
+        "plain_on_cuda": launches["plain_on_cuda"] == 0,
+        # the parts of one exact_knn call fit in its wall
+        "refine_split": min(line["refine_split_s"][k] for k in
+                            ("kernel", "host_refine", "reselect", "rest"))
+            >= 0,
+        "dlnz_timed_kernel":
+            line["max_abs_dlnz_vs_f64_oracle_timed_kernel"] <= FAST_DLNZ_TOL,
+        "dlnz_fast": line["max_abs_dlnz_vs_f64_oracle_fast_mode"]
+            <= FAST_DLNZ_TOL,
+        "dlnz_device": line["max_abs_dlnz_vs_f64_oracle_device_mode"]
+            <= DLNZ_TOL}
+    ok = all(gates.values())
+    phase("bench", **line, gates=gates, child_s=child_s, ok=ok)
+    if not ok:
+        raise AssertionError(f"bench: gates {gates}")
+    for name in KERNELS:
+        total[name] += launches[name]
+
+    # the timed step under the profiler: do the REPS runs follow each other
+    # on the card, and what waits between them
+    n = int(line["workload"].split("N=")[1].split()[0])
+    theta, lnl = bench.synthetic_chain(n, bench.NDIM)
+    tensors = bench.chain_tensors(theta, lnl, dev)
+    bench.evidence_reps(*tensors, reps)
+    acts = [torch.profiler.ProfilerActivity.CPU]
+    if on_card:
+        torch.cuda.synchronize()
+        acts.append(torch.profiler.ProfilerActivity.CUDA)
+    with tempfile.TemporaryDirectory() as tmp, \
+            Counted("bench timed step, traced", total) as c:
+        path = os.path.join(tmp, "bench_trace.json")
+        with torch.profiler.profile(activities=acts) as prof:
+            float(bench.evidence_reps(*tensors, reps)[0])
+        prof.export_chrome_trace(path)
+        kernels, window, busy = trace_summary(path)
+        waits = runtime_waits(path)
+    if on_card:
+        c.require("knn_select_packed")
+    phase("bench_trace", shape=f"{reps} runs of the timed step, "
+          f"N={n} d={bench.NDIM} kmax={bench.KMAX}", window_us=window,
+          device_busy_us=busy, device_busy_share=busy / window,
+          kernel_us=kernels, runtime_waits=waits, gpu=smi)
+
+    # 8b. the service stream and its concurrency leg
+    serve_env = dict(env or {})
+    serve_env.setdefault("MCE_SERVE_BENCH_SIZES", SERVE_BENCH_SIZES)
+    sizes = serve_env["MCE_SERVE_BENCH_SIZES"].split(",")
+    rc, line, out, err, child_s = harness(
+        "bench_serve", ["2", "--clients", "1,2", *dev_args], serve_env)
+    ok = bool(rc == 0 and line is not None
+              and sorted(line["sizes"]) == sorted(sizes)
+              and all(v["requests"] == 2 for v in line["sizes"].values())
+              and [leg["clients"] for leg in line["concurrency"]["legs"]]
+              == [1, 2])
+    phase("bench_serve", **(line or {}), child_s=child_s, ok=ok)
+    if not ok:
+        raise AssertionError(f"bench_serve: exit {rc}, line {line}\n"
+                             f"{err[-3000:]}")
+
+    # 8c. ``planck.main`` at its defaults, cold and warm, against the
+    # per-cell refine tables of each mode
+    datasets = planck.DATASETS[:2]
+    with tempfile.TemporaryDirectory() as tmp:
+        grid = os.path.join(tmp, "grid")
+        write_grid(grid, datasets, np.random.default_rng(20261016))
+        for nchain, mode, label in ((0, "AllChains", "AllChains"),
+                                    (4, "SingleChains", "-nc 4")):
+            if refs is None or label not in refs:
+                ref_out = os.path.join(tmp, "ref_" + mode)
+                extra = ["-nc", str(nchain)] if nchain else []
+                rc = planck.main(["--rootdir", grid, "-v", "0", "-nd",
+                                  str(len(datasets)), "-o", ref_out,
+                                  "--no-batch-cells", "--precision",
+                                  "refine", "--device", dev] + extra)
+                if rc != 0:
+                    raise AssertionError(f"bench_grid {label} refine: "
+                                         f"exit {rc}")
+            ref = (refs[label] if refs is not None and label in refs
+                   else read_tables(ref_out, mode, datasets))
+            rc, line, out, err, child_s = harness(
+                "bench_grid", [grid, os.path.join(tmp, "out_" + mode),
+                               str(nchain), "2", *dev_args], env)
+            if rc != 0 or line is None:
+                raise AssertionError(f"bench_grid {label}: exit {rc}\n"
+                                     f"{err[-3000:]}")
+            gaps = [tables_gap(f"bench_grid {label} run {r['run']}",
+                               read_tables(r["out"], mode, datasets), ref,
+                               datasets) for r in line["runs"]]
+            ok = all(r["rc"] == 0 for r in line["runs"]) and max(gaps) \
+                <= DLNZ_TOL
+            phase("bench_grid", **line,
+                  max_abs_dlnz_vs_refine_per_cell=gaps, tol=DLNZ_TOL,
+                  child_s=child_s, ok=ok)
+            if not ok:
+                raise AssertionError(f"bench_grid {label}: |dlnZ| {gaps}")
+    phase("bench_seconds", total_s=time.perf_counter() - t_phase, gpu=smi)
 
 
 def main():
@@ -1937,8 +2127,7 @@ def main():
     wide_oracles = {60: oracle_evidence(theta, lnl, 60),
                     300: oracle_evidence(theta, lnl, 300),
                     "d65": oracle_evidence(wide_theta, wide_lnl, 5)}
-    with Counted("past the limits: kmax 60 / 300, d = 65", total) as c, \
-            no_plain_on_card():
+    with Counted("past the limits: kmax 60 / 300, d = 65", total) as c:
         t0 = time.perf_counter()
         k60 = evidence_fn(theta, lnl, kmax=60, device="cuda")
         k60_s = time.perf_counter() - t0
@@ -1950,6 +2139,9 @@ def main():
                                  precision=prec, device="cuda")
                for prec in ("refine", "device", "fast")}
     c.require("knn_select_wide", "knn_select_large_k")
+    if c.plain_on_card:
+        raise AssertionError(f"the plain selection ran on the card "
+                             f"{c.plain_on_card} times")
     hold_to_oracle("wide_refine_kmax60", k60, wide_oracles[60])
     hold_to_oracle("wide_fast_kmax300", k300, wide_oracles[300],
                    FAST_DLNZ_TOL)
@@ -1957,7 +2149,7 @@ def main():
         hold_to_oracle(f"wide_d65_{prec}", got, wide_oracles["d65"],
                        FAST_DLNZ_TOL if prec == "fast" else DLNZ_TOL)
     phase("wide_paths", refine_kmax60_s=k60_s, fast_kmax300_s=k300_s,
-          plain_selection_on_card=0, gpu=smi, ok=True)
+          plain_selection_on_card=c.plain_on_card, gpu=smi, ok=True)
 
     phase("launches", path="main paths, total", **total)
     for name, n in total.items():
@@ -2217,6 +2409,10 @@ def main():
     # 7. the validation path: the examples' chains through the kernels,
     # NUTS on the card, the examples' CLI and the profiler trace
     validation_phase(total, smi, theta, lnl)
+
+    # 8. the benchmark harnesses (bench, bench_serve, bench_grid) as a user
+    # runs them
+    bench_phase(total, smi, refs=refs)
 
     # each kernel's body (the __global__ function) is in knn_common.cuh; the
     # source beside it instantiates it and holds the C entry point

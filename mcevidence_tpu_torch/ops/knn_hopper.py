@@ -75,6 +75,10 @@ SENTINEL = 1e18
 
 # bytes one plain-version working buffer may take
 _PLAIN_BLOCK_BYTES = 1 << 28
+# calls of knn_select_torch on CUDA tensors: the kernels answer every shape
+# on the card, so a run that measures them requires 0 (the f64 oracles of
+# the tests and chip_smoke.py call it there on purpose)
+plain_cuda_calls = 0
 
 Counts = Union[None, int, Sequence[int], torch.Tensor]
 
@@ -118,6 +122,8 @@ def knn_select_torch(query: torch.Tensor, ref: torch.Tensor, k: int, *,
     nr = _valid_count(ref, nr)
     k = min(k, ref.shape[0])
     dtype, dev = query.dtype, query.device
+    global plain_cuda_calls
+    plain_cuda_calls += dev.type == "cuda"
     if low_bits and dtype != torch.float32:
         raise ValueError(f"low_bits={low_bits} truncates f32 keys, got "
                          f"{dtype}")
@@ -774,5 +780,9 @@ def knn_select_cuda(query: torch.Tensor, ref: torch.Tensor, k: int, *,
 
 
 def reset_launch_counts() -> None:
+    """Set every kernel wrapper's launch count, and the plain selection's
+    count of calls on CUDA tensors, to 0."""
     for wrapper in KERNEL_WRAPPERS:
         wrapper.launches = 0
+    global plain_cuda_calls
+    plain_cuda_calls = 0
