@@ -149,8 +149,10 @@ fails before printing any result.
       to 16000 rows a side also to the same call on ``device="cpu"``, the
       unweighted ones to the f64 oracle, and every one to its analytic or
       quadrature truth within tests/test_examples.py's band for its model
-      (the sweeps within 3 rms of the bias JAX's study measured,
-      docs/VALIDATION_STUDY.md); ``knn_select_small_k`` must launch.
+      (the sweeps within 3 rms of the bias docs/VALIDATION_STUDY.md prints,
+      as ``study_document`` reads it from the document, whose chains they
+      draw);
+      ``knn_select_small_k`` must launch.
    b. ``glm_nuts(seed=3)`` with its gradients on the card, 2500 draws,
       under tests/test_examples.py:69-83's asserts (mean within 6 sigma of
       the ML point, ln Z estimated on the card within 0.3 of the closed
@@ -187,6 +189,24 @@ fails before printing any result.
       AllChains and with ``-nc 4``: exit 0, and every run's tables within
       1e-6 of ``planck``'s per-cell refine tables of that mode.
    The phase takes 65-95 s on one H100 (six child processes).
+9. the validation study at docs/VALIDATION_STUDY.md's seed counts, as a
+   user runs it: ``mcevidence_tpu_torch.validation_study.main`` in this
+   process with its stdout captured, for ``10`` (the document's command:
+   every table at 10 seeds a cell, cross at 40, nested at 10), ``6 cross``
+   (the document's cross tables, 24 seeds) and ``8 nested`` (its nested
+   table), each with the launch counts set to 0 just before it and read
+   just after.  Every printed cell of the document's N, d, correlated,
+   cross and nested tables must equal the document's digits
+   (``study_document``); every seed of the importance, banana
+   and thinned autocorrelated legs within tests/test_examples.py's band
+   for its model (0.15 weighted, 0.2 banana), and every seed of the
+   unthinned ensemble below its truth (the caveat that leg prints); every
+   ln Z finite;
+   ``knn_select_small_k`` launched and no CUDA tensor on the plain
+   selection.  Then ``python -m mcevidence_tpu_torch.compare_grids``'s
+   ``main`` on phase 4c's trees (the defaults' against the per-cell refine
+   tables, AllChains and ``-nc 4``) must exit 0 at 1e-6, and on a copy
+   with one AllChains cell moved by 1e-5 must not.
 
 The line before the last is a JSON object of the kernels; the last line is
 ``{"ok": true, "device": {...}}``.
@@ -200,6 +220,7 @@ import logging
 import math
 import os
 import re
+import shutil
 import statistics
 import subprocess
 import sys
@@ -222,16 +243,6 @@ KERNELS = ("knn_select_small_k", "knn_select_large_k", "knn_select_batched",
            "knn_select_smalld", "knn_select_packed", "knn_select_prologue",
            "knn_select_wide")
 RING_NOTE = "ranks share one card: not a scaling figure"
-# JAX's bias and rms of ln Z over 10 seeds a cell (docs/VALIDATION_STUDY.md,
-# from scripts/validation_study.py; truth ln Z = 0): the N sweep at d=4,
-# k=1, and the d sweep at N=32000, k=1 and k=4
-STUDY_N = {2000: (-0.0312, 0.0379), 8000: (-0.0201, 0.0255),
-           32000: (-0.0122, 0.0128), 128000: (-0.0069, 0.0072)}
-STUDY_D = {2: ((0.0001, 0.0044), (-0.0021, 0.0041)),
-           4: ((-0.0122, 0.0128), (-0.0196, 0.0199)),
-           8: ((-0.0255, 0.0266), (-0.0148, 0.0156)),
-           12: ((0.1025, 0.1027), (0.1580, 0.1580)),
-           15: ((0.2952, 0.2953), (0.3916, 0.3917))}
 STUDY_MARGIN = 3.0            # one seed: |lnZ - bias| <= 3 rms
 CPU_ROWS_MAX = 16000          # legs held on the CPU too (see phase 7a)
 # phase 4a's fresh process: the default refine path, then the libraries it
@@ -875,18 +886,6 @@ def ring_phase(total, smi, theta, lnl, one_card, dev="cuda:0"):
             raise AssertionError(f"planck --distributed: |dlnZ| {gap}")
 
 
-def study_chain(rng, n, d):
-    """scripts/validation_study.py:38's chain: drawn exactly from its own
-    normalised Gaussian likelihood, so the true ln Z is 0."""
-    mean = np.linspace(1.0, 2.0, d)
-    sig = np.full(d, 0.05)
-    th = rng.normal(mean, sig, size=(n, d))
-    z = (th - mean) / sig
-    lnl = (-0.5 * np.sum(z * z, axis=1)
-           - 0.5 * d * np.log(2 * np.pi) - np.sum(np.log(sig)))
-    return th, lnl
-
-
 def validation_legs(tmp, dev="cuda", scale=1):
     """Phase 7a's legs: (name, rows a side, call(device, engine) -> lnZ,
     oracle thunk or None, [(column, truth, band)]).  ``scale`` divides the
@@ -894,6 +893,7 @@ def validation_legs(tmp, dev="cuda", scale=1):
     from mcevidence_tpu_torch import MCEvidence, evidence_fn
     from mcevidence_tpu_torch import examples as ex
     from mcevidence_tpu_torch.chains.nested import load_nested_chains
+    from mcevidence_tpu_torch.validation_study import chain as study_chain
 
     def facade(chain, **kw):
         return lambda dev, eng: MCEvidence(chain, kmax=2, verbose=0,
@@ -984,21 +984,23 @@ def validation_legs(tmp, dev="cuda", scale=1):
             legs.append((f"nested_eg d={nd} "
                          f"{'equal-weights' if eq else 'weighted'}", rows,
                          facade(chains, priorvolume=vol), oracle, truth))
-    # the sweeps in device precision, each within 3 rms of JAX's bias
-    for n in sorted(STUDY_N):
+    # the sweeps in device precision, each within 3 rms of the bias that
+    # docs/VALIDATION_STUDY.md prints (phase 9 reproduces its tables)
+    doc = study_document()
+    for n, (b, r) in sorted(doc["convergence"].items()):
         th, lnl = study_chain(np.random.default_rng(4000 + n), n // scale,
                               4)
-        b, r = STUDY_N[n]
+        b, r = float(b), float(r)
         legs.append((f"N sweep d=4 N={n} device", len(th),
                      functools.partial(
                          lambda th, lnl, dev, eng: evidence_fn(
                              th, lnl, kmax=2, precision="device", device=dev,
                              engine=eng), th, lnl),
                      unweighted(th, lnl), [(0, b, STUDY_MARGIN * r)]))
-    for d in sorted(STUDY_D):
+    for d, cells in sorted(doc["dimension"].items()):
         th, lnl = study_chain(np.random.default_rng(1000 * d + 32000),
                               32000 // scale, d)
-        (b1, r1), (b4, r4) = STUDY_D[d]
+        b1, r1, b4, r4 = map(float, cells)
         legs.append((f"d sweep N=32000 d={d} device", len(th),
                      functools.partial(
                          lambda th, lnl, dev, eng: evidence_fn(
@@ -1374,6 +1376,175 @@ def bench_phase(total, smi, dev="cuda", env=None, refs=None):
             if not ok:
                 raise AssertionError(f"bench_grid {label}: |dlnZ| {gaps}")
     phase("bench_seconds", total_s=time.perf_counter() - t_phase, gpu=smi)
+
+
+# 9. the validation study at docs/VALIDATION_STUDY.md's seed counts: its
+# command (every table; cross then runs 40 seeds a cell and nested 10, which
+# the document does not print), then its cross tables (24 seeds) and its
+# nested table (8)
+STUDY_RUNS = (("10",), ("6", "cross"), ("8", "nested"))
+STUDY_DOCUMENTED = {("10",): ("convergence", "dimension", "correlated"),
+                    ("6", "cross"): ("cross_split", "cross_matched"),
+                    ("8", "nested"): ("nested",)}
+STUDY_DOC = os.path.join(HERE, "docs", "VALIDATION_STUDY.md")
+# the document's tables in the order it prints them: each table's name, the
+# columns that key a row (as its header names them and as the study module's
+# rows hold them), and the first cell of a module's row that the document
+# prints (it prints no mean ln Z column)
+STUDY_TABLES = (("convergence", ("N",), 1), ("dimension", ("d",), 1),
+                ("correlated", ("d",), 1), ("cross_split", ("N", "d"), 2),
+                ("cross_matched", ("N", "d"), 2),
+                ("nested", ("d", "input"), 3))
+# the nested table's inputs: the study module's name, the document's text
+NESTED_INPUTS = (("equal-weights", "equal-weights rows"),
+                 ("weighted dead-point", "weighted dead-point rows"),
+                 ("NS own estimate", "the NS run's own estimate"))
+# the legs the document has no table of: every seed's error within
+# tests/test_examples.py's band for its model (the autocorrelated leg's
+# thinned rows; its unthinned row is the caveat it prints: ln Z biased low)
+STUDY_BANDS = {"importance": 0.15, "banana": 0.2, "autocorr": 0.2}
+
+
+def study_document(path=STUDY_DOC):
+    """docs/VALIDATION_STUDY.md's tables, cell for cell as printed: table
+    name -> {row key: the cells after the key}.  A key is the row's number
+    (or a tuple of its key columns); the nested table's input is the study
+    module's name for it."""
+    tables, rows = [], None
+    with open(path) as fh:
+        for line in fh:
+            if not line.startswith("|"):
+                rows = None
+                continue
+            cells = [c.strip().strip("*")
+                     for c in line.strip().strip("|").split("|")]
+            if rows is None:
+                rows = []
+                tables.append((cells, rows))
+            elif set(cells[0]) != {"-"}:
+                rows.append(cells)
+    if len(tables) != len(STUDY_TABLES):
+        raise AssertionError(f"{path}: {len(tables)} tables, expected "
+                             f"{len(STUDY_TABLES)}")
+    doc = {}
+    for (name, fields, _), (header, rows) in zip(STUDY_TABLES, tables):
+        if tuple(header[:len(fields)]) != fields:
+            raise AssertionError(f"{path}: table {name} has header {header}")
+        table = doc[name] = {}
+        for cells in rows:
+            key = [int(c) if f != "input" else
+                   next(ours for ours, text in NESTED_INPUTS
+                        if c.startswith(text))
+                   for f, c in zip(fields, cells)]
+            table[key[0] if len(key) == 1 else tuple(key)] = tuple(
+                cells[len(fields):])
+    return doc
+
+
+def held_study_cells(doc, name, rows):
+    """The printed cells of a documented table against the document's
+    (``study_document``): (cells held, mismatches)."""
+    fields, first = next((f, i) for n, f, i in STUDY_TABLES if n == name)
+    held, bad = 0, []
+    if len(rows) != len(doc[name]):
+        bad.append({"table": name, "rows": len(rows),
+                    "document_rows": len(doc[name])})
+    for row in rows:
+        key = tuple(row[f] for f in fields)
+        key = key[0] if len(key) == 1 else key
+        want = doc[name].get(key)
+        if want is None:
+            bad.append({"table": name, "row": row["cells"][:first],
+                        "want": "no such row in the document"})
+            continue
+        got = row["cells"][first:first + len(want)]
+        held += len(want)
+        if got != want:
+            bad.append({"table": name, "row": row["cells"][:first],
+                        "got": got, "want": want})
+    return held, bad
+
+
+def study_phase(total, smi, trees):
+    """9. The validation study as a user runs it, in this process
+    (``validation_study.main`` with stdout captured), each run with the
+    launch counts set to 0 just before it and read just after; then the
+    port's ``compare_grids`` on phase 4c's trees.  ``trees``: label ->
+    (the per-cell refine tree, the defaults' tree)."""
+    import pandas as pd
+    from mcevidence_tpu_torch import compare_grids, validation_study
+    t_phase = time.perf_counter()
+    doc = study_document()
+    for argv in STUDY_RUNS:
+        buf = io.StringIO()
+        t0 = time.perf_counter()
+        with Counted(f"validation study {' '.join(argv)}", total) as c, \
+                contextlib.redirect_stdout(buf):
+            tables = validation_study.main(list(argv))
+        seconds = time.perf_counter() - t0
+        c.require("knn_select_small_k")
+        held, bad = 0, []
+        for name in STUDY_DOCUMENTED[argv]:
+            h, b = held_study_cells(doc, name, tables[name])
+            held, bad = held + h, bad + b
+        bands = {}
+        for name, band in STUDY_BANDS.items():
+            if name in tables:
+                errs = [x for r in tables[name] if r.get("thin") != 1
+                        for x in r.get("error", r["lnz"])]
+                bands[name] = {"band": band, "max_abs_error":
+                               float(np.max(np.abs(errs)))}
+        unthinned = [x for r in tables.get("autocorr", ())
+                     if r["thin"] == 1 for x in r["error"]]
+        finite = all(np.all(np.isfinite(np.ravel(part)))
+                     for rows in tables.values() for r in rows
+                     for part in (r["lnz"].values()
+                                  if isinstance(r["lnz"], dict)
+                                  else [r["lnz"]]))
+        ok = bool(finite and not bad and c.plain_on_card == 0
+                  and all(b["max_abs_error"] <= b["band"]
+                          for b in bands.values())
+                  and all(x < 0 for x in unthinned))
+        phase("study", run=" ".join(argv), seconds=seconds,
+              tables={name: [r["cells"] for r in rows]
+                      for name, rows in tables.items()},
+              documented_cells_held=held, mismatches=bad, bands=bands,
+              unthinned_errors=unthinned, launches=c.counts,
+              plain_on_card=c.plain_on_card, gpu=smi, ok=ok)
+        if not ok:
+            raise AssertionError(f"validation study {argv}: finite {finite},"
+                                 f" mismatches {bad}, bands {bands}, "
+                                 f"unthinned {unthinned}, plain selection "
+                                 f"on the card {c.plain_on_card}\n"
+                                 f"{buf.getvalue()}")
+
+    # the comparator of the golden regression on phase 4c's trees, then on
+    # a copy with one AllChains cell moved by 1e-5
+    def compare(ref, ours):
+        out = io.StringIO()
+        with contextlib.redirect_stdout(out):
+            rc = compare_grids.main([ref, ours, "1e-6"])
+        return rc, out.getvalue().strip()
+
+    runs = {label: compare(*pair) for label, pair in trees.items()}
+    ok = all(rc == 0 for rc, _ in runs.values())
+    ref, ours = trees["AllChains"]
+    with tempfile.TemporaryDirectory() as tmp:
+        moved = shutil.copytree(ours, os.path.join(tmp, "moved"))
+        csv = os.path.join(moved, "AllChains", "csv")
+        path = os.path.join(csv, min(f for f in os.listdir(csv)
+                                     if f.startswith("mce_")))
+        df = pd.read_csv(path, index_col=0)
+        df.iloc[0, df.columns.get_loc("AllChains")] += 1e-5
+        df.to_csv(path)
+        runs["AllChains, one cell moved by 1e-5"] = compare(ref, moved)
+    ok = ok and runs["AllChains, one cell moved by 1e-5"][0] != 0
+    phase("study_compare_grids", tol=1e-6,
+          runs={label: {"rc": rc, "report": out}
+                for label, (rc, out) in runs.items()}, ok=ok)
+    if not ok:
+        raise AssertionError(f"compare_grids: {runs}")
+    phase("study_seconds", total_s=time.perf_counter() - t_phase, gpu=smi)
 
 
 def main():
@@ -1968,6 +2139,9 @@ def main():
     grid_log.addHandler(stages)
     grid_log.setLevel(logging.INFO)      # the stage lines, whatever -v says
     grid_times = {}
+    # phase 9 compares the per-cell refine trees with the defaults' trees
+    kept = tempfile.TemporaryDirectory(prefix="chip_smoke_trees_")
+    trees = {}
     with tempfile.TemporaryDirectory() as tmp:
         grid = os.path.join(tmp, "grid")
         t0 = time.perf_counter()
@@ -2031,6 +2205,11 @@ def main():
             if not ok:
                 raise AssertionError(f"grid {label} {variant}: |dlnZ| "
                                      f"{worst} > {tol}")
+        for label, (mode, _) in modes.items():
+            trees[label] = tuple(
+                shutil.copytree(os.path.join(tmp, src),
+                                os.path.join(kept.name, src))
+                for src in ("ref_" + mode, f"out_{mode}_defaults"))
     grid_log.removeHandler(stages)
 
     # 4g. the JSON-lines service (a child process, and in-process), --json
@@ -2413,6 +2592,11 @@ def main():
     # 8. the benchmark harnesses (bench, bench_serve, bench_grid) as a user
     # runs them
     bench_phase(total, smi, refs=refs)
+
+    # 9. the validation study at the document's seed counts, and the grid
+    # comparator on phase 4c's trees
+    study_phase(total, smi, trees)
+    kept.cleanup()
 
     # each kernel's body (the __global__ function) is in knn_common.cuh; the
     # source beside it instantiates it and holds the C entry point
