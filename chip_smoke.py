@@ -17,7 +17,9 @@ fails before printing any result.
    (the wide bodies: route A per Padded width, keys a lane and warps a
    block; route B per key and list placement) from nvcc's
    ``--resource-usage`` log.
-3. kernel vs plain: each kernel against its plain version on the same CUDA
+3. kernel vs plain (the legs of ``mcevidence_tpu_torch.kernel_cert``:
+   ``compare``, ``compare_batched`` and ``tie_order_broken``, one JSON line
+   a leg): each kernel against its plain version on the same CUDA
    tensors: ``knn_select_small_k`` and ``knn_select_large_k`` against
    ``knn_select_torch``, ``knn_select_batched`` against
    ``knn_select_torch_batched`` member by member (heterogeneous per-member
@@ -103,7 +105,10 @@ fails before printing any result.
       65-parameter chain in refine, device and fast, against the oracle at
       1e-6 (fast 3e-3); ``knn_select_wide`` must launch, and no CUDA tensor
       may reach the plain selection.
-5. times: each kernel against its plain version at the main paths' shapes
+5. times (the rows of ``mcevidence_tpu_torch.kernel_bench``: ``self_row``
+   and its studies ``smalld_study``, ``packed2_study`` and
+   ``prologue_study``): each kernel against its plain version at the main
+   paths' shapes
    (the small-d kernel beside the small-k and large-k kernels at d = 3, 6,
    7, 8; the packed selections at k = 9 and 44 beside the exact ones; the
    prologue study at k = 1 and 5 beside the small-k kernel; a sweep of
@@ -118,10 +123,12 @@ fails before printing any result.
    d = 65 (N=16384, k=9) beside its plain version, then its sweep with the
    route of each shape: k = 264 / 300 / 512 / 1024 / 2048 (N=65536, d=8),
    k = 300 at d = 3, 32, 64 (N=65536), d = 65 / 100 / 128 at k = 9 / 44
-   (N=16384), route B's time beside route A's where both apply; and one
-   yardstick on the ``time`` line only, ``library_pair_ms``: ``torch.cdist``
-   then ``torch.topk`` over query chunks under 2 GB of distances, TF32 off,
-   at k = 264 and 300.
+   (N=16384), route B's time beside route A's where both apply; and the
+   library yardstick, ``library_ms``: ``torch.cdist`` then ``torch.topk``
+   over query chunks under 2 GB of distances, TF32 off, on each kernel's
+   first row (the kernels line quotes it) and every other row of a shape
+   the port's kernel table quotes (the wide kernel's k = 264 and 300 also
+   on a ``library_pair_ms`` line of its own); the sweeps have none.
 6. the ring (``parallel/ring.py``): 2 and 4 ranks of one gloo group, each a
    process on the one card (NCCL takes one card a rank), with the library
    built by this process first.  ``sharded_auto_evidence`` refine and fast,
@@ -207,9 +214,22 @@ fails before printing any result.
    ``main`` on phase 4c's trees (the defaults' against the per-cell refine
    tables, AllChains and ``-nc 4``) must exit 0 at 1e-6, and on a copy
    with one AllChains cell moved by 1e-5 must not.
+10. one card's N envelope: ``python -m mcevidence_tpu_torch.envelope 20 8``
+   as a child process (fast and device, warm then timed, at N = 2^17 ..
+   2^20, d=8, kmax=5): every point present, |fast - device| <= 3e-3 at
+   each, no CUDA tensor on the plain selection; device within 1e-6 of the
+   f64 oracle at 2^17 (the oracle's f64 plain selection grows as N^2);
+   refine (``evidence_fn`` at its defaults, with the launch counts set to
+   0 just before it and read just after) within 1e-6 of device at 2^18,
+   2^20 and 1,000,000 rows; ``knn_select_small_k`` timed at N=2^20, d=8,
+   k=9 beside its bound, and its selection of 4096 sampled query rows held
+   to an f64 brute-force kNN of them on the card within 2^-10, on all
+   2^20 rows and with 1,000,000 valid rows (garbage past them) in the
+   allocation.
 
-The line before the last is a JSON object of the kernels; the last line is
-``{"ok": true, "device": {...}}``.
+The line before the last is a JSON object of the kernels, each with its
+``library_ms`` (the library pair on its first row of phase 5); the last
+line is ``{"ok": true, "device": {...}}``.
 """
 
 import contextlib
@@ -230,18 +250,16 @@ import time
 import numpy as np
 import torch
 
-REL_TOL = 2.0 ** -10          # the kernel-cert criterion
-D2_REL_TOL = 2.0 ** -18       # returned f32 d2 vs the plain version's
-PACKED_D2_REL_TOL = 2.0 ** -11  # one quantum of a packed selection's d2
+from mcevidence_tpu_torch.kernel_bench import (
+    FLOPS_TEXT, KERNELS, LIBRARY_PAIR, cuda_ms, host_ms, packed2_study,
+    prologue_gate, prologue_study, self_row, smalld_study)
+from mcevidence_tpu_torch.kernel_cert import (
+    check_selection, compare, compare_batched, report, tie_order_broken)
+
 DLNZ_TOL = 1e-6               # refine vs f64 oracle, tests/test_evidence.py
 FAST_DLNZ_TOL = 3e-3          # fast vs refine, tests/test_evidence.py:169
 FAST_GRID_TOL = 5e-3          # fast grid vs refine, tests/test_planck.py:161
-FP32_PEAK = 67e12             # H100 SXM f32 outside the tensor cores, 700 W
-HBM_RATE = 3.35e12            # H100 SXM HBM3 bytes/s
 HERE = os.path.dirname(os.path.abspath(__file__))
-KERNELS = ("knn_select_small_k", "knn_select_large_k", "knn_select_batched",
-           "knn_select_smalld", "knn_select_packed", "knn_select_prologue",
-           "knn_select_wide")
 RING_NOTE = "ranks share one card: not a scaling figure"
 STUDY_MARGIN = 3.0            # one seed: |lnZ - bias| <= 3 rms
 CPU_ROWS_MAX = 16000          # legs held on the CPU too (see phase 7a)
@@ -258,9 +276,6 @@ evidence_fn(theta, lnl, kmax=5, device="cuda")
 print(json.dumps({"loaded": _build.loaded(),
                   "first_call_s": time.perf_counter() - t0}))
 """
-# the yardstick of the wide kernel: query chunks whose distance block stays
-# under this many bytes
-LIBRARY_PAIR_BYTES = 2e9
 GPU_EVENT_CATS = ("kernel", "gpu_memcpy", "gpu_memset")
 
 
@@ -316,161 +331,6 @@ def oracle_evidence(theta, lnl, kmax, theta2=None, dev="cuda"):
         amax = np.dot(vol, fs) / (n * k_nn + 1.0)
         out.append(math.log(n * amax) + log_jac + lmax)
     return np.array(out)
-
-
-def f64_d2_at(query, ref, idx):
-    """f64 squared distances at the returned indices, -1 -> +inf."""
-    safe = idx.clamp(min=0).long()
-    diff = query.double()[:, None, :] - ref.double()[safe]
-    d2 = (diff * diff).sum(-1)
-    return torch.where(idx < 0, torch.full_like(d2, math.inf), d2)
-
-
-def returned_d2_rel(kd2, pd2):
-    """Largest relative gap between the kernel's returned f32 d2 and the
-    plain version's, both sorted per row; zero distances must match."""
-    k = torch.sort(kd2.double(), dim=1).values
-    p = torch.sort(pd2.double(), dim=1).values
-    fin = torch.isfinite(p)
-    if bool(((p[fin] == 0) != (k[fin] == 0)).any()):
-        raise AssertionError("returned d2: zero distances differ")
-    pos = fin & (p > 0)
-    if not bool(pos.any()):
-        return 0.0
-    return float(((k[pos] - p[pos]).abs() / p[pos]).max())
-
-
-def check_selection(name, query, ref, kd2, kidx, pd2, pidx, self_mode,
-                    nr=None):
-    """One selection against the plain version's; returns (max_rel,
-    max_abs, returned_rel) of the d2."""
-    if kd2.shape != pd2.shape:
-        raise AssertionError(f"{name}: shape {tuple(kd2.shape)} vs "
-                             f"{tuple(pd2.shape)}")
-    if not bool(((kidx < 0) == (pidx < 0)).all()) or not bool(
-            (torch.isinf(kd2) == torch.isinf(pd2)).all()):
-        raise AssertionError(f"{name}: absent slots differ")
-    if self_mode:
-        rows = torch.arange(query.shape[0], device=kidx.device)
-        if not bool((kidx[:, 0] == rows).all()) or bool(kd2[:, 0].any()):
-            raise AssertionError(f"{name}: self pin broken")
-    if nr is not None and bool((kidx >= nr).any()):
-        raise AssertionError(f"{name}: selected a row at or past nr={nr}")
-    # the f64 d2 of the raw rows at the kernel's indices against the plain
-    # version's f32 d2 of centred rows.  Centring in f32 moves each
-    # coordinate difference by at most e = 2^-23 (max|x| + max|mu|), so a d2
-    # by at most 2 sqrt(d d2) e + d e^2: that stays below REL_TOL of any d2
-    # above floor = 5 d e^2 / REL_TOL^2, and below REL_TOL * floor under it.
-    # The mean is taken here in f64 over the valid rows, apart from the
-    # port's, so garbage reaching the port's mean shows as a gap.
-    valid = ref[:ref.shape[0] if nr is None else nr].double()
-    scale = float(query.double().abs().max()) if query.numel() else 0.0
-    if valid.numel():
-        scale = max(scale, float(valid.abs().max())) + float(
-            valid.mean(0).abs().max())
-    e = 2.0 ** -23 * scale
-    floor = 5.0 * query.shape[-1] * e * e / REL_TOL ** 2
-    got = torch.sort(f64_d2_at(query, ref, kidx), dim=1).values
-    want = torch.sort(pd2.double(), dim=1).values
-    fin = torch.isfinite(want)
-    num = (got[fin] - want[fin]).abs()
-    rel = abs_err = 0.0
-    if num.numel():
-        rel = float((num / want[fin].clamp(min=max(floor, 1e-30))).max())
-        abs_err = float((kd2.double()[fin] - want[fin]).abs().max())
-    return rel, abs_err, returned_d2_rel(kd2, pd2)
-
-
-def truncated_bits_set(kd2, low_bits):
-    """Whether any finite returned d2 has one of its low ``low_bits``
-    mantissa bits set (the packed selections clear them)."""
-    fin = torch.isfinite(kd2)
-    bits = kd2[fin].contiguous().view(torch.int32) & ((1 << low_bits) - 1)
-    return bool(bits.any())
-
-
-def report(name, k, nq, nr, rel, abs_err, d2_rel, returned, low_bits=0):
-    """``returned``: the leg also holds the returned d2 to D2_REL_TOL, or
-    with ``low_bits`` (a packed selection against the plain version with
-    the same truncation) to one quantum, PACKED_D2_REL_TOL; its low bits
-    are checked to be zero on every leg."""
-    d2_tol = PACKED_D2_REL_TOL if low_bits else D2_REL_TOL
-    ok = rel <= REL_TOL and (not returned or d2_rel <= d2_tol)
-    phase("kernel_vs_plain", leg=name, k=k, nq=nq, nr=nr, max_rel_d2_err=rel,
-          max_abs_d2_err=abs_err, returned_d2_rel_err=d2_rel,
-          returned_d2_checked=returned, returned_d2_tol=d2_tol,
-          low_bits=low_bits, ok=ok)
-    if not ok:
-        raise AssertionError(f"{name}: max_rel_d2_err {rel} > {REL_TOL} or "
-                             f"returned d2 {d2_rel} > {d2_tol}")
-    return rel, abs_err
-
-
-def compare(name, kernel, query, ref, k, self_mode, nr=None,
-            returned=False, low_bits=0, plain=None):
-    """One unbatched kernel-vs-plain leg on CUDA tensors; ``low_bits``:
-    the truncation the plain version applies too; ``plain``: another plain
-    version than ``knn_select_torch``."""
-    from mcevidence_tpu_torch.ops.knn_hopper import knn_select_torch
-    kd2, kidx = kernel(query, ref, k, self_mode=self_mode, nr=nr)
-    if plain is None:
-        pd2, pidx = knn_select_torch(query, ref, k, self_mode=self_mode,
-                                     nr=nr, low_bits=low_bits)
-    else:
-        pd2, pidx = plain(query, ref, k, self_mode=self_mode, nr=nr)
-    torch.cuda.synchronize()
-    if low_bits and truncated_bits_set(kd2, low_bits):
-        raise AssertionError(f"{name}: a returned d2 keeps its low bits")
-    res = check_selection(name, query, ref, kd2, kidx, pd2, pidx, self_mode,
-                          nr)
-    return report(name, k, query.shape[0],
-                  ref.shape[0] if nr is None else nr, *res, returned,
-                  low_bits)
-
-
-def compare_batched(name, query, ref, k, self_mode, nr, nq, kernel=None,
-                    returned=False, low_bits=0):
-    """One batched kernel-vs-plain leg: member b's first nq[b] rows are
-    checked like an unbatched leg against its first nr[b] reference rows;
-    its padded query rows must come back absent."""
-    from mcevidence_tpu_torch.ops import knn_hopper as kh
-    kernel = kernel or kh.knn_select_batched
-    kd2, kidx = kernel(query, ref, k, self_mode=self_mode, nr=nr, nq=nq)
-    pd2, pidx = kh.knn_select_torch_batched(query, ref, k,
-                                            self_mode=self_mode, nr=nr,
-                                            nq=nq, low_bits=low_bits)
-    torch.cuda.synchronize()
-    if low_bits and truncated_bits_set(kd2, low_bits):
-        raise AssertionError(f"{name}: a returned d2 keeps its low bits")
-    rel = abs_err = d2_rel = 0.0
-    for b, (n_q, n_r) in enumerate(zip(nq, nr)):
-        if not bool((kidx[b, n_q:] == -1).all()) or not bool(
-                torch.isinf(kd2[b, n_q:]).all()):
-            raise AssertionError(f"{name}: member {b} padded rows not "
-                                 "absent")
-        r_b, a_b, d_b = check_selection(
-            f"{name} member {b}", query[b, :n_q], ref[b], kd2[b, :n_q],
-            kidx[b, :n_q], pd2[b, :n_q], pidx[b, :n_q], self_mode, n_r)
-        rel, abs_err, d2_rel = max(rel, r_b), max(abs_err, a_b), max(d2_rel,
-                                                                     d_b)
-    return report(name, k, list(nq), list(nr), rel, abs_err, d2_rel,
-                  returned, low_bits)
-
-
-def cuda_ms(fn, reps=5):
-    """Median milliseconds of ``fn()`` by CUDA events, after one warm-up."""
-    fn()
-    torch.cuda.synchronize()
-    times = []
-    for _ in range(reps):
-        a = torch.cuda.Event(enable_timing=True)
-        b = torch.cuda.Event(enable_timing=True)
-        a.record()
-        fn()
-        b.record()
-        b.synchronize()
-        times.append(a.elapsed_time(b))
-    return statistics.median(times)
 
 
 def write_toy_root(tmp, rng):
@@ -625,39 +485,6 @@ def tables_gap(label, got, want, datasets):
     return worst
 
 
-def flops(kernel, nq, nr, d):
-    """f32 operations the TPU kernel a wrapper replaces needs for nq x nr
-    pairs of width d: K1-K5 take d2 by the matrix identity, 2*d flops a
-    pair for the dot product and 2*d a row for the norms; K8/K9 sum
-    per-coordinate differences, 3*d flops a pair (subtract, fused
-    multiply-add)."""
-    if kernel == "knn_select_smalld":
-        return 3.0 * d * nq * nr
-    return 2.0 * d * (nq * nr + nq + nr)
-
-
-FLOPS_TEXT = {"knn_select_small_k": "2*d a pair + 2*d a row (K1, K4)",
-              "knn_select_large_k": "2*d a pair + 2*d a row (K2, K3, K4)",
-              "knn_select_batched": "2*d a pair + 2*d a row (K5)",
-              "knn_select_smalld": "3*d a pair (K8, K9)",
-              "knn_select_packed": "2*d a pair + 2*d a row (K6, K7, K1)",
-              "knn_select_prologue": "2*d a pair + 2*d a row (S1)",
-              "knn_select_wide": "2*d a pair + 2*d a row (K2, K4, K6 past "
-                                 "k = 256 or d = 64)"}
-
-
-def bound(kernel, n, d, k, batch=1):
-    """The least time the card could take for one self selection of ``n``
-    rows of width d per member: the larger of the operations (``flops``)
-    over the FP32 peak and the bytes (the rows read once, the d2 and
-    indices written once) over the memory rate.  Returns (ms, what binds
-    it)."""
-    ops = batch * flops(kernel, n, n, d) / FP32_PEAK
-    nbytes = batch * (4.0 * n * d + 8.0 * n * k) / HBM_RATE
-    return max(ops, nbytes) * 1e3, ("operations" if ops >= nbytes
-                                    else "bytes")
-
-
 def body_name(kernel):
     """A selection body's name from its mangled kernel name: "small
     Padded<8>", "large Compact<3>", "wide A Padded<8> N=16 warps=16" (the
@@ -700,24 +527,6 @@ def resource_table(log):
         if m:
             ent["spill_bytes"] += int(m.group(1))
     return table
-
-
-def tie_order_broken(kidx, self_mode, nr):
-    """With every row one point, all d2 are 0 and the slots must hold the
-    indices in order: the self row first in self mode, then 0, 1, ... (the
-    self row skipped), absent past nr."""
-    nq, k = kidx.shape
-    rows = torch.arange(nq, device=kidx.device)[:, None]
-    rank = torch.arange(k, device=kidx.device)[None, :]
-    if self_mode:
-        want = rank - 1 + (rank - 1 >= rows).long()
-        want = torch.where(rank == 0, rows, want)
-        valid = rank < min(nr, k)
-    else:
-        want = rank.expand(nq, k)
-        valid = rank < min(nr, k)
-    want = torch.where(valid, want, -1)
-    return not bool((kidx.long() == want).all())
 
 
 def ring_call(fn, *args, **kwargs):
@@ -1547,6 +1356,134 @@ def study_phase(total, smi, trees):
     phase("study_seconds", total_s=time.perf_counter() - t_phase, gpu=smi)
 
 
+# phase 10: the envelope's command, the sizes refine is held to device at,
+# the size device is held to the f64 oracle at (the oracle's f64 plain
+# selection grows as N^2), and the rows of the sampled kernel cert
+ENVELOPE_ARGS = ("20", "8")
+ENVELOPE_POWERS = (17, 18, 19, 20)
+ENVELOPE_ORACLE_N = 2 ** 17
+ENVELOPE_REFINE_N = (2 ** 18, 2 ** 20, 1_000_000)
+ENVELOPE_CERT_ROWS = 4096
+ENVELOPE_CERT_NR = 1_000_000
+
+
+def envelope_cert(name, x64, k, nr, sample, dev):
+    """The small-k kernel's self selection of the first ``nr`` rows of
+    ``x64`` (cast to f32; rows past ``nr`` in the allocation hold 1e8
+    garbage) at the ``sample`` query rows, against an f64 brute-force kNN of
+    those rows on the card, held to ``REL_TOL`` as the kernel cert holds a
+    leg.  Returns the leg's (max_rel, max_abs)."""
+    from mcevidence_tpu_torch.ops import knn_hopper as kh
+    alloc = torch.as_tensor(x64, dtype=torch.float32, device=dev)
+    if nr < alloc.shape[0]:
+        alloc[nr:] = 1e8
+    kd2, kidx = kh.knn_select_small_k(alloc[:nr], alloc, k, self_mode=True,
+                                      nr=nr)
+    rows = torch.as_tensor(sample, device=dev)
+    kd2, kidx = kd2[rows], kidx[rows]
+    del alloc
+    if not bool((kidx[:, 0] == rows).all()):
+        raise AssertionError(f"{name}: self pin broken")
+    ref = torch.as_tensor(x64[:nr], dtype=torch.float64, device=dev)
+    query = ref[rows]
+    # cross mode over every valid row: the query row itself comes first at
+    # d2 = 0, as the kernel's self pin puts it
+    pd2, pidx = kh.knn_select_torch(query, ref, k)
+    res = check_selection(name, query, ref, kd2, kidx, pd2, pidx, False, nr)
+    return report(name, k, len(sample), nr, *res, False,
+                  emit=lambda r: phase("envelope_cert", **r))
+
+
+def envelope_phase(total, smi, dev="cuda", args=ENVELOPE_ARGS,
+                   powers=ENVELOPE_POWERS, oracle_n=ENVELOPE_ORACLE_N,
+                   refine_n=ENVELOPE_REFINE_N, cert_rows=ENVELOPE_CERT_ROWS,
+                   cert_nr=ENVELOPE_CERT_NR):
+    """10. One card's N envelope: ``python -m mcevidence_tpu_torch.envelope
+    20 8`` as a child process, every point held (fast within 3e-3 of
+    device, no CUDA tensor on the plain selection; device within 1e-6 of
+    the f64 oracle at ``oracle_n``); refine (``evidence_fn`` at its
+    defaults) within 1e-6 of device at ``refine_n``; the small-k kernel
+    timed at the largest point, and its selection of ``cert_rows`` sampled
+    query rows against an f64 brute-force kNN of them, on all rows and with
+    ``cert_nr`` valid rows in the allocation.  The arguments cut
+    the phase for a rehearsal on a host without a card (``dev="cpu"``,
+    ``Counted.require`` stubbed)."""
+    from mcevidence_tpu_torch import envelope, evidence_fn
+    from mcevidence_tpu_torch.ops import knn_hopper as kh
+    t_phase = time.perf_counter()
+    rc, _, out, err, child_s = harness("envelope",
+                                       [*args, "--device", dev])
+    points = {}
+    for line in out.splitlines():
+        if line.startswith("{"):
+            rec = json.loads(line)
+            points[rec["n"]] = rec
+    missing = [2 ** p for p in powers if 2 ** p not in points]
+    if rc != 0 or missing:
+        raise AssertionError(f"envelope: exit {rc}, points missing "
+                             f"{missing}\n{out[-3000:]}\n{err[-3000:]}")
+    d = int(args[1])
+    kmax = envelope.KMAX
+    for n, rec in sorted(points.items()):
+        ok = ("error" not in rec and rec["dlnz_fast_dev"] <= FAST_DLNZ_TOL
+              and rec["launches"]["plain_on_cuda"] == 0)
+        phase("envelope", **rec, tol=FAST_DLNZ_TOL, ok=ok)
+        if not ok:
+            raise AssertionError(f"envelope N={n}: {rec}")
+        for name in KERNELS:
+            total[name] += rec["launches"][name]
+    theta, lnl = envelope.chain(oracle_n, d)
+    hold_to_oracle(f"envelope_device_vs_oracle N={oracle_n}",
+                   points[oracle_n]["lnz_device"],
+                   oracle_evidence(theta, lnl, kmax, dev=dev))
+    for n in refine_n:
+        theta, lnl = envelope.chain(n, d)
+        with Counted(f"envelope refine N={n}", total) as c:
+            t0 = time.perf_counter()
+            got = evidence_fn(theta, lnl, kmax=kmax, device=dev)
+            refine_s = time.perf_counter() - t0
+            if n in points:
+                want, device_s = points[n]["lnz_device"], None
+            else:
+                t0 = time.perf_counter()
+                want = evidence_fn(theta, lnl, kmax=kmax,
+                                   precision="device", device=dev)
+                device_s = time.perf_counter() - t0
+        c.require("knn_select_small_k")
+        dlnz = float(np.max(np.abs(np.asarray(got) - np.asarray(want))))
+        ok = bool(np.all(np.isfinite(got)) and dlnz <= DLNZ_TOL
+                  and c.plain_on_card == 0)
+        phase("envelope_refine", n=n, refine_s=refine_s,
+              device_s=device_s if device_s is not None
+              else points[n]["device_s"],
+              device_from="this process" if device_s is not None
+              else "envelope", lnz_refine=np.asarray(got).tolist(),
+              lnz_device=np.asarray(want).tolist(), max_abs_dlnz=dlnz,
+              tol=DLNZ_TOL, plain_selection_on_card=c.plain_on_card,
+              gpu=smi, ok=ok)
+        if not ok:
+            raise AssertionError(f"envelope refine N={n}: |dlnZ| {dlnz} > "
+                                 f"{DLNZ_TOL} or the plain selection ran on "
+                                 "the card")
+    # the small-k kernel at the largest point, then its sampled f64 cert
+    n = 2 ** max(powers)
+    theta = envelope.chain(n, d)[0]
+    x = torch.as_tensor(theta, dtype=torch.float32, device=dev)
+    kernel_row = self_row("knn_select_small_k", kh.knn_select_small_k, x,
+                          kmax + 4, f"self N={n} d={d} k={kmax + 4} "
+                          "(envelope)", plain=None, library=False, gpu=smi,
+                          timer=cuda_ms if dev != "cpu" else host_ms)
+    del x
+    valid = min(n, cert_nr)
+    sample = np.sort(np.random.default_rng(n).choice(valid, cert_rows,
+                                                     replace=False))
+    for nr in sorted({n, valid}, reverse=True):
+        envelope_cert(f"small_k sampled N={n} nr={nr} d={d} k={kmax + 4}",
+                      theta, kmax + 4, nr, sample, dev)
+    phase("envelope_seconds", total_s=time.perf_counter() - t_phase,
+          child_s=child_s, kernel_ms=kernel_row["ms"], gpu=smi)
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this script "
@@ -2337,67 +2274,54 @@ def main():
             raise AssertionError(f"{name} was never launched by the main "
                                  "paths")
 
-    # 5. times, kernel beside plain, at the main paths' shapes
+    # 5. times, kernel beside plain, at the main paths' shapes: rows of
+    # kernel_bench (CUDA events; the bound of the TPU kernel's work; the
+    # library pair on each kernel's first row, which the kernels line
+    # quotes, and on every other shape PERF.md's kernel table quotes)
     lat_t = cu(lat_theta - lat_theta.mean(0))
     xs = {d: cu(bench_chain(65536, d, seed=d)[0] - np.arange(1.0, d + 1.0))
           for d in (3, 6, 7, 8)}
-    timed = [("knn_select_small_k", small, x, 8, 9, "self N=65536 d=8 k=9"),
-             ("knn_select_large_k", large, x, 8, 44,
-              "self N=65536 d=8 k=44 (retry of kmax=5)"),
-             ("knn_select_large_k", large, lat_t, 3, 32,
-              "self N=64000 d=3 k=32 (lattice retry)"),
-             ("knn_select_large_k", large, x, 8, 14,
-              "self N=65536 d=8 k=14"),
-             ("knn_select_large_k", large, x, 8, 20,
-              "self N=65536 d=8 k=20 (fast, kmax=20)"),
-             ("knn_select_large_k", large, x, 8, 26,
-              "self N=65536 d=8 k=26")]
+    times = {}
+
+    def keep(rows):
+        for r in rows:
+            times.setdefault(r["kernel"], r)
+        return rows
+
+    def row(name, fn, q, k, shape, plain=kh.knn_select_torch, **kw):
+        kw.setdefault("library", name not in times)
+        return keep([self_row(name, fn, q, k, shape, plain=plain, gpu=smi,
+                              **kw)])[0]
+
+    row("knn_select_small_k", small, x, 9, "self N=65536 d=8 k=9")
+    row("knn_select_large_k", large, x, 44,
+        "self N=65536 d=8 k=44 (retry of kmax=5)")
+    row("knn_select_large_k", large, lat_t, 32,
+        "self N=64000 d=3 k=32 (lattice retry)", library=True)
+    row("knn_select_large_k", large, x, 14, "self N=65536 d=8 k=14")
+    row("knn_select_large_k", large, x, 20,
+        "self N=65536 d=8 k=20 (fast, kmax=20)", library=True)
+    row("knn_select_large_k", large, x, 26, "self N=65536 d=8 k=26")
     for d in (8, 7, 6, 3):
-        for k in (9, 44):
-            timed.append(("knn_select_smalld", smalld, xs[d], d, k,
-                          f"self N=65536 d={d} k={k} (smalld)"))
-            timed.append(("knn_select_small_k" if k < 14
-                          else "knn_select_large_k",
-                          small if k < 14 else large, xs[d], d, k,
-                          f"self N=65536 d={d} k={k} (beside smalld)"))
-    timed.append(("knn_select_smalld", smalld, lat_t, 3, 32,
-                  "self N=64000 d=3 k=32 (smalld, lattice retry)"))
+        keep(smalld_study(xs[d], ks=(9, 44), library=d == 8, gpu=smi))
+    row("knn_select_smalld", smalld, lat_t, 32,
+        "self N=64000 d=3 k=32 (smalld, lattice retry)")
     # the wide kernel at the shapes of phase 4h: the refine retry of
     # kmax = 60, fast at kmax = 300, the d = 65 chain's first pass
     x65 = cu(wide_theta - wide_theta.mean(0))
-    timed += [("knn_select_wide", kh.knn_select_wide, x, 8, 264,
-               "self N=65536 d=8 k=264 (refine retry of kmax=60)"),
-              ("knn_select_wide", kh.knn_select_wide, x, 8, 300,
-               "self N=65536 d=8 k=300 (fast, kmax=300)"),
-              ("knn_select_large_k", large, x, 8, 256,
-               "self N=65536 d=8 k=256 (beside wide)"),
-              ("knn_select_wide", kh.knn_select_wide, x65, 65, 9,
-               "self N=16384 d=65 k=9 (d=65 chain, first pass)")]
-    # the packed selections beside the exact kernels at the refine path's
-    # first pass and retry
-    for lb, tpu in ((11, "K6"), (12, "K1 forced")):
-        for k in (9, 44):
-            timed.append(("knn_select_packed", functools.partial(
-                kh.knn_select_packed, low_bits=lb), x, 8, k,
-                f"self N=65536 d=8 k={k} low_bits={lb} ({tpu})",
-                functools.partial(kh.knn_select_torch, low_bits=lb)))
-            if lb == 11:
-                timed.append(("knn_select_small_k" if k < 14
-                              else "knn_select_large_k",
-                              small if k < 14 else large, x, 8, k,
-                              f"self N=65536 d=8 k={k} (beside K6, K1)"))
-    times = {}
-    for name, fn, q, d, k, shape, *plain in timed:
-        plain = plain[0] if plain else kh.knn_select_torch
-        ms = cuda_ms(lambda: fn(q, q, k, self_mode=True))
-        plain_ms = cuda_ms(lambda: plain(q, q, k, self_mode=True))
-        pairs = float(q.shape[0]) * q.shape[0]
-        b_ms, b_by = bound(name, q.shape[0], d, k)
-        phase("time", kernel=name, shape=shape, ms=ms, plain_ms=plain_ms,
-              bound_ms=b_ms, bound_by=b_by, share_of_bound=b_ms / ms,
-              pairs_per_s=pairs / (ms * 1e-3),
-              plain_pairs_per_s=pairs / (plain_ms * 1e-3), gpu=smi)
-        times.setdefault(name, (ms, plain_ms, b_ms, b_by))
+    wide_rows = [row("knn_select_wide", kh.knn_select_wide, x, k, shape,
+                     library=True)
+                 for k, shape in ((264, "self N=65536 d=8 k=264 (refine "
+                                        "retry of kmax=60)"),
+                                  (300, "self N=65536 d=8 k=300 (fast, "
+                                        "kmax=300)"))]
+    row("knn_select_large_k", large, x, 256,
+        "self N=65536 d=8 k=256 (beside wide)")
+    row("knn_select_wide", kh.knn_select_wide, x65, 9,
+        "self N=16384 d=65 k=9 (d=65 chain, first pass)", library=True)
+    # the packed selections (K6 at 11 low bits, K1 forced at 12) beside the
+    # exact kernels at the refine path's first pass and retry
+    keep(packed2_study(x, ks=(9, 44), low_bits=(11, 12), gpu=smi))
     # the bodies' sweep over k and d at N=65536 (the plain version, whose
     # time hardly moves with k, is timed above)
     xs[32] = cu(rng.normal(size=(65536, 32)))
@@ -2406,13 +2330,8 @@ def main():
                              ("knn_select_large_k", large,
                               (14, 20, 26, 44, 106, 256))):
             for k in ks:
-                ms = cuda_ms(lambda: fn(xs[d], xs[d], k, self_mode=True))
-                b_ms, b_by = bound(name, 65536, d, k)
-                phase("time", kernel=name,
-                      shape=f"self N=65536 d={d} k={k} (sweep)", ms=ms,
-                      plain_ms=None, bound_ms=b_ms, bound_by=b_by,
-                      share_of_bound=b_ms / ms,
-                      pairs_per_s=65536.0 ** 2 / (ms * 1e-3), gpu=smi)
+                row(name, fn, xs[d], k, f"self N=65536 d={d} k={k} (sweep)",
+                    plain=None, library=False)
     del xs[32]
     # the wide kernel across k and d, each shape with its route, and route B
     # beside route A where both apply (the routing rule's crossover)
@@ -2424,74 +2343,29 @@ def main():
                        for k in (9, 44)]):
         n = q.shape[0]
         route = kh.wide_plan(d, k - 1).route
-        ms = cuda_ms(lambda: kh.knn_select_wide(q, q, k, self_mode=True))
-        b_ms, b_by = bound("knn_select_wide", n, d, k)
         extra = {}
         if route == "A":
             extra["route_b_ms"] = cuda_ms(lambda: kh._launch_wide(
                 q, q, k, True, None, None, 0, True, route="B"))
-        phase("time", kernel="knn_select_wide",
-              shape=f"self N={n} d={d} k={k} (sweep)", route=route, ms=ms,
-              plain_ms=None, bound_ms=b_ms, bound_by=b_by,
-              share_of_bound=b_ms / ms, pairs_per_s=float(n) ** 2 / (
-                  ms * 1e-3), **extra, gpu=smi)
+        row("knn_select_wide", kh.knn_select_wide, q, k,
+            f"self N={n} d={d} k={k} (sweep)", plain=None, library=False,
+            route=route, **extra)
     del xw_
-
-    # the yardstick: one library pair (torch.cdist, then torch.topk) on
-    # query chunks, TF32 off; never called by the port
-    def library_pair(q, k):
-        rows = max(1, int(LIBRARY_PAIR_BYTES // (q.shape[0] * 4)))
-        for lo in range(0, q.shape[0], rows):
-            torch.topk(torch.cdist(q[lo:lo + rows], q), k, dim=1,
-                       largest=False)
-
-    for k in (264, 300):
+    # the yardstick of the wide kernel's rows above, on a line of its own:
+    # one library pair, never called by the port
+    for r in wide_rows:
         phase("time", kernel="knn_select_wide",
-              shape=f"self N=65536 d=8 k={k} (library pair)",
-              library_pair_ms=cuda_ms(lambda: library_pair(x, k), reps=3),
-              library_pair="torch.cdist then torch.topk(largest=False), "
-                           "query chunks under 2 GB of distances, TF32 off",
+              shape=r["shape"].split(" (")[0] + " (library pair)",
+              library_pair_ms=r["library_ms"], library_pair=LIBRARY_PAIR,
               gpu=smi)
     # the prologue study's own path (scripts/bench_prologue.py's main): a
     # gate against K1's function without the cuts, then each variant timed
     # at its operating points (:196-210) beside that function and the
     # small-k kernel the default dispatch runs
-    k1 = functools.partial(kh.knn_select_packed, low_bits=12)
-    plain12 = functools.partial(kh.knn_select_torch, low_bits=12)
     study = {n: 0 for n in KERNELS}
     with Counted("prologue study", study) as c:
-        gate = x[:4096]
-        want = k1(gate, gate, 5, self_mode=True)
-        for variant in ("B", "BC"):
-            got = kh.knn_select_prologue(gate, gate, 5, variant=variant)
-            same = all(torch.equal(a, b) for a, b in zip(got, want))
-            phase("prologue_gate", variant=variant, shape="self N=4096 d=8 "
-                  "k=5", identical_to_k1=same, ok=same)
-            if not same:
-                raise AssertionError(f"prologue {variant}: differs from K1's "
-                                     "function without the cuts")
-        # k = 5 first: at k = 1 in self mode the plain version has only the
-        # self slot to fill, so the kernels line quotes k = 5
-        for k in (5, 1):
-            for name, fn, label, plain in [
-                    ("knn_select_small_k", small, "shipped small-k", None),
-                    ("knn_select_packed", k1, "K1 forced", plain12),
-                    ("knn_select_prologue", functools.partial(
-                        kh.knn_select_prologue, variant="B"), "S1 B",
-                     plain12),
-                    ("knn_select_prologue", functools.partial(
-                        kh.knn_select_prologue, variant="BC"), "S1 BC",
-                     plain12)]:
-                plain = plain or kh.knn_select_torch
-                ms = cuda_ms(lambda: fn(x, x, k, self_mode=True))
-                plain_ms = cuda_ms(lambda: plain(x, x, k, self_mode=True))
-                b_ms, b_by = bound(name, x.shape[0], 8, k)
-                phase("time", kernel=name,
-                      shape=f"self N=65536 d=8 k={k} ({label})", ms=ms,
-                      plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
-                      share_of_bound=b_ms / ms,
-                      pairs_per_s=65536.0 ** 2 / (ms * 1e-3), gpu=smi)
-                times.setdefault(name, (ms, plain_ms, b_ms, b_by))
+        prologue_gate(x)
+        keep(prologue_study(x, ks=(5, 1), gpu=smi))
     c.require("knn_select_prologue")
     # the study's own kernel; its K1 and small-k launches only time them
     total["knn_select_prologue"] = study["knn_select_prologue"]
@@ -2499,38 +2373,17 @@ def main():
             - np.arange(1.0, 9.0))
     nb = [16384] * 4
     for k in (6, 26):
-        ms = cuda_ms(lambda: kh.knn_select_batched(qb, qb, k, self_mode=True,
-                                                   nr=nb, nq=nb))
-        plain_ms = cuda_ms(lambda: kh.knn_select_torch_batched(
-            qb, qb, k, self_mode=True, nr=nb, nq=nb))
-        pairs = 4.0 * 16384 * 16384
-        b_ms, b_by = bound("knn_select_batched", 16384, 8, k, batch=4)
-        phase("time", kernel="knn_select_batched",
-              shape=f"self B=4 Nq=Nr=16384 d=8 k={k}", ms=ms,
-              plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
-              share_of_bound=b_ms / ms, pairs_per_s=pairs / (ms * 1e-3),
-              plain_pairs_per_s=pairs / (plain_ms * 1e-3), gpu=smi)
-        times.setdefault("knn_select_batched", (ms, plain_ms, b_ms, b_by))
+        shape = f"self B=4 Nq=Nr=16384 d=8 k={k}"
+        row("knn_select_batched", kh.knn_select_batched, qb, k, shape,
+            plain=kh.knn_select_torch_batched, nr=nb, library=True)
         # the small-d kernel's batched form (K9) on the same batch
-        sd_ms = cuda_ms(lambda: smalld(qb, qb, k, self_mode=True, nr=nb,
-                                       nq=nb))
-        b_ms, b_by = bound("knn_select_smalld", 16384, 8, k, batch=4)
-        phase("time", kernel="knn_select_smalld",
-              shape=f"self B=4 Nq=Nr=16384 d=8 k={k} (batched form)",
-              ms=sd_ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
-              share_of_bound=b_ms / sd_ms, pairs_per_s=pairs / (sd_ms * 1e-3),
-              plain_pairs_per_s=pairs / (plain_ms * 1e-3), gpu=smi)
+        row("knn_select_smalld", smalld, qb, k, shape + " (batched form)",
+            plain=kh.knn_select_torch_batched, nr=nb, library=True)
         # the packed selection's batched form (K7) on the same batch
-        pk_ms = cuda_ms(lambda: kh.knn_select_packed(
-            qb, qb, k, self_mode=True, nr=nb, nq=nb))
-        pk_plain_ms = cuda_ms(lambda: kh.knn_select_torch_batched(
-            qb, qb, k, self_mode=True, nr=nb, nq=nb, low_bits=11))
-        b_ms, b_by = bound("knn_select_packed", 16384, 8, k, batch=4)
-        phase("time", kernel="knn_select_packed",
-              shape=f"self B=4 Nq=Nr=16384 d=8 k={k} low_bits=11 (K7)",
-              ms=pk_ms, plain_ms=pk_plain_ms, bound_ms=b_ms, bound_by=b_by,
-              share_of_bound=b_ms / pk_ms, pairs_per_s=pairs / (pk_ms * 1e-3),
-              plain_pairs_per_s=pairs / (pk_plain_ms * 1e-3), gpu=smi)
+        row("knn_select_packed", kh.knn_select_packed, qb, k,
+            shape + " low_bits=11 (K7)", plain=functools.partial(
+                kh.knn_select_torch_batched, low_bits=11), nr=nb,
+            library=True)
     walls = {}
     for precision in ("refine", "device", "fast", "fast", "device",
                       "refine"):
@@ -2598,6 +2451,10 @@ def main():
     study_phase(total, smi, trees)
     kept.cleanup()
 
+    # 10. one card's N envelope, 2^17 to 2^20 rows, and refine at 2^18,
+    # 2^20 and 1,000,000 rows
+    envelope_phase(total, smi)
+
     # each kernel's body (the __global__ function) is in knn_common.cuh; the
     # source beside it instantiates it and holds the C entry point
     csrc = "mcevidence_tpu_torch/csrc/"
@@ -2632,14 +2489,16 @@ def main():
                     sources=sorted({src, body, kern.pop("entry"),
                                     *kern.pop("headers", [])}))
         nm = kern["name"]
-        ms, plain_ms, b_ms, b_by = times[nm]
-        # no single PyTorch call selects k nearest neighbours
+        t = times[nm]
+        # no single PyTorch call selects k nearest neighbours: the library
+        # time is the pair torch.cdist then torch.topk on the same inputs
         kern.update(launches=total[nm],
                     max_abs_err=max(a for _, a in errs[nm]),
                     max_rel_d2_err=max(r for r, _ in errs[nm]),
-                    ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
-                    bound_by=b_by, bound_flops=FLOPS_TEXT[nm],
-                    library_ms=None)
+                    ms=t["ms"], plain_ms=t["plain_ms"],
+                    bound_ms=t["bound_ms"], bound_by=t["bound_by"],
+                    bound_flops=FLOPS_TEXT[nm], shape=t["shape"],
+                    library_ms=t["library_ms"], library=LIBRARY_PAIR)
     print(smi, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
