@@ -209,71 +209,31 @@ class _Clock:
         return time.perf_counter() - start
 
 
-def refine_split(white, kmax, device, clock):
+def refine_split(white, kmax, device):
     """One refine-precision ``ops/knn.py:exact_knn(white, None, kmax)``
-    call, timed in parts: for the call, the selector and the two host
-    refines it looks up in ``ops.knn`` are swapped for timing shims (in
-    this process only) and put back after.  Returns (its distances, the
-    split): ``kernel``, the first-pass selection (by CUDA events on a
-    card); ``host_refine``, the host f64 refine and its guard;
-    ``reselect``, the guard's reselection if it fired (selection and copy);
-    ``rest``, the call's wall less those (centring, copies, launch);
+    call, timed in parts by the program's own spans (``utils/spans.py``).
+    Returns (its distances, the split): ``kernel``, the first pass's
+    ``select`` span, the host's wait for the launch and the index copy;
+    ``host_refine``, the first pass's host f64 refine and margin test;
+    ``reselect``, the guard's reselection if it fired (its selection and
+    refine); ``rest``, the call's wall less those (the host prep, the
+    upload);
     ``knn_s``, the call's wall."""
-    from .ops import knn as knn_mod
-    names = ("selector", "guarded_refine_knn_f64", "_refine_knn_f64_all")
-    real = {name: getattr(knn_mod, name) for name in names}
-    parts = {"kernel": 0.0, "host_refine": 0.0, "reselect": 0.0}
-    refining = []                      # non-empty inside a host refine
+    from .ops.knn import exact_knn
+    from .utils.spans import collect, span
+    timings, spans = {}, []
+    with collect(timings, spans), span("knn"):
+        d = exact_knn(white, None, kmax, device=device)
+    again = [(a, b) for name, _, a, b in spans if name == "reselect"]
 
-    def selector(*args, **kwargs):
-        sel = real["selector"](*args, **kwargs)
-
-        def first_pass(*a, **kw):
-            if refining:               # the guard's reselection
-                return sel(*a, **kw)
-            start = clock.start()
-            out = sel(*a, **kw)
-            parts["kernel"] += clock.seconds(start)
-            return out
-        return first_pass
-
-    def timed_reselect(reselect):
-        def run(k_sel):
-            t0 = time.perf_counter()
-            try:
-                return reselect(k_sel)
-            finally:
-                parts["reselect"] += time.perf_counter() - t0
-        return run
-
-    def host_refine(name):
-        def run(*args, **kwargs):
-            if refining:               # the guard's own calls
-                return real[name](*args, **kwargs)
-            if kwargs.get("reselect") is not None:
-                kwargs["reselect"] = timed_reselect(kwargs["reselect"])
-            refining.append(name)
-            t0 = time.perf_counter()
-            try:
-                return real[name](*args, **kwargs)
-            finally:
-                parts["host_refine"] += time.perf_counter() - t0
-                refining.pop()
-        return run
-
-    knn_mod.selector = selector
-    for name in names[1:]:
-        setattr(knn_mod, name, host_refine(name))
-    try:
-        t0 = time.perf_counter()
-        d = knn_mod.exact_knn(white, None, kmax, device=device)
-        knn_s = time.perf_counter() - t0
-    finally:
-        for name in names:
-            setattr(knn_mod, name, real[name])
-    parts["host_refine"] -= parts["reselect"]
-    parts["rest"] = knn_s - sum(parts.values())
-    parts["knn_s"] = knn_s
+    def first_pass(name):
+        return sum(b - a for n, _, a, b in spans if n == name and not any(
+            ra <= a and b <= rb for ra, rb in again))
+    parts = {"kernel": first_pass("select"),
+             "host_refine": first_pass("host_refine"),
+             "reselect": timings.get("reselect_s", 0.0)}
+    parts["rest"] = timings["knn_s"] - sum(parts.values())
+    parts["knn_s"] = timings["knn_s"]
     return d, parts
 
 
@@ -355,8 +315,8 @@ def main(argv=None) -> int:
     # ever slows a call down)
     watchdog.pet("refine-split", 900.0)
     white = apply_whiten(theta, whiten_stats(theta))
-    refine_split(white, KMAX, dev, clock)
-    refine_split_s = min((refine_split(white, KMAX, dev, clock)[1]
+    refine_split(white, KMAX, dev)
+    refine_split_s = min((refine_split(white, KMAX, dev)[1]
                           for _ in range(SPLIT_RUNS)),
                          key=lambda split: split["knn_s"])
 

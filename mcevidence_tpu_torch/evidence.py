@@ -37,6 +37,7 @@ from .ops.whiten import WhitenStats, apply_whiten, whiten_stats
 from .utils.batch import BatchPlan, make_batch_plan
 from .utils.device import resolve_device
 from .utils.logging import configure, verbosity_to_level
+from .utils.spans import collect, span
 
 logger = logging.getLogger(__name__)
 
@@ -211,7 +212,10 @@ class MCEvidence:
         self.engine = engine
         self.rng = np.random.default_rng(seed)
         self.info: dict = {}
+        # the steps' seconds and the page-fault count (``utils/spans.py``)
+        # of the ingest and the latest evidence(), and its spans
         self.timings: dict = {}
+        self.spans: list = []
         self.fname = method if isinstance(method, str) else None
         self.snames = ["s1", "s2"] if split else ["s1"]
 
@@ -224,13 +228,14 @@ class MCEvidence:
             method = {"samples": np.asarray(samples),
                       "loglikes": np.asarray(lnlike)}
 
-        t0 = time.perf_counter()
-        idchain = gdkwargs.pop("idchain", 0)
-        idpattern = gdkwargs.pop("idpattern", "_?.txt")
-        self.pair: ChainPair = ingest(
-            method, burnlen=burnlen, thinlen=thinlen, split=split,
-            s1frac=s1frac, idchain=idchain, idpattern=idpattern, rng=self.rng)
-        self.timings["ingest_s"] = time.perf_counter() - t0
+        with collect(self.timings, self.spans), span("ingest"):
+            idchain = gdkwargs.pop("idchain", 0)
+            idpattern = gdkwargs.pop("idpattern", "_?.txt")
+            self.pair: ChainPair = ingest(
+                method, burnlen=burnlen, thinlen=thinlen, split=split,
+                s1frac=s1frac, idchain=idchain, idpattern=idpattern,
+                rng=self.rng)
+        self._ingest_timings = dict(self.timings)
 
         if isfunc is not None:
             self.pair = importance_sample(self.pair, isfunc,
@@ -320,7 +325,17 @@ class MCEvidence:
         profile= and ignores it, MCEvidence.py:950-952) and, when
         ``MCE_PROFILE_DIR`` is set, writes a ``torch.profiler`` Chrome trace
         of the run (CPU activity, and CUDA activity on a card) into that
-        directory, named with the process id and a time stamp.
+        directory, named with the process id and a time stamp; the trace
+        holds the estimate's spans as ``mce.<name>`` annotations.
+
+        Each call replaces ``self.timings`` and ``self.spans`` with this
+        estimate's (``utils/spans.py``), keeping the constructor's
+        ``ingest``: ``timings`` holds ``<span>_s``, each span's seconds
+        summed over its runs, for the spans that ran (``evidence``;
+        ``whiten``, ``knn``, ``estimator`` or ``fused``; inside them
+        ``host_prep``, ``upload``, ``select``, ``host_refine``,
+        ``reselect``, ``device_prep``, ``device_run``); ``spans`` holds
+        ``(name, parent, start, end)`` on the ``perf_counter`` clock.
         """
         if verbose is None:
             verbose = self.verbose
@@ -329,17 +344,17 @@ class MCEvidence:
             covtype = self.covtype
         _check_mode(covtype, COVTYPES, "covtype")
 
+        args = (verbose, rand, info, covtype, profile, log_pv, pos_lnp,
+                prewhiten)
         trace_dir = os.environ.get("MCE_PROFILE_DIR") if profile else None
         if not trace_dir:
-            return self._evidence_impl(verbose, rand, info, covtype, profile,
-                                       log_pv, pos_lnp, prewhiten)
+            return self._collected(args)
         from torch.profiler import ProfilerActivity, profile as torch_profile
         on_card = self.device.type == "cuda"
         activities = [ProfilerActivity.CPU] + (
             [ProfilerActivity.CUDA] if on_card else [])
         with torch_profile(activities=activities) as prof:
-            out = self._evidence_impl(verbose, rand, info, covtype, profile,
-                                      log_pv, pos_lnp, prewhiten)
+            out = self._collected(args)
             if on_card:
                 torch.cuda.synchronize(self.device)
         os.makedirs(trace_dir, exist_ok=True)
@@ -348,6 +363,16 @@ class MCEvidence:
         prof.export_chrome_trace(path)
         logger.info("profiler trace written to %s", path)
         return out
+
+    def _collected(self, args):
+        """``_evidence_impl(*args)`` as one estimate under the ``evidence``
+        span: the timings and spans of an earlier call are dropped, the
+        constructor's ingest kept."""
+        self.timings.clear()
+        self.timings.update(self._ingest_timings)
+        del self.spans[1:]                 # the ingest span stays first
+        with collect(self.timings, self.spans), span("evidence"):
+            return self._evidence_impl(*args)
 
     def _evidence_impl(self, verbose, rand, info, covtype, profile, log_pv,
                        pos_lnp, prewhiten):
@@ -361,14 +386,13 @@ class MCEvidence:
             s2 = self._get_batch("s2", 0, False)[0] if self.split else None
             if pos_lnp:
                 lnl = -lnl
-            t0 = time.perf_counter()
-            out = device_refine_evidence(
-                s, lnl, w, samples2=s2, kmax=kmax,
-                prior_volume=math.exp(log_pv),
-                sum_adjusted_weights=float(
-                    np.sum(self.pair.s1.adjusted_weights)),
-                engine=self.engine, device=self.device)
-            self.timings["fused_s"] = time.perf_counter() - t0
+            with span("fused"):
+                out = device_refine_evidence(
+                    s, lnl, w, samples2=s2, kmax=kmax,
+                    prior_volume=math.exp(log_pv),
+                    sum_adjusted_weights=float(
+                        np.sum(self.pair.s1.adjusted_weights)),
+                    engine=self.engine, device=self.device)
             if verbose > 0:
                 for k in range(1, kmax):
                     logger.info("   ln(B)[k=%d] = %s", k, out[k - 1])
@@ -390,13 +414,12 @@ class MCEvidence:
             s, lnl, w = self._get_batch("s1", 0, False)
             if pos_lnp:
                 lnl = -lnl
-            t0 = time.perf_counter()
-            out = fast_auto_evidence(
-                s, lnl, w, kmax=kmax, prior_volume=math.exp(log_pv),
-                sum_adjusted_weights=float(
-                    np.sum(self.pair.s1.adjusted_weights)),
-                engine=self.engine, device=self.device)
-            self.timings["fused_s"] = time.perf_counter() - t0
+            with span("fused"):
+                out = fast_auto_evidence(
+                    s, lnl, w, kmax=kmax, prior_volume=math.exp(log_pv),
+                    sum_adjusted_weights=float(
+                        np.sum(self.pair.s1.adjusted_weights)),
+                    engine=self.engine, device=self.device)
             if verbose > 0:
                 for k in range(1, kmax):
                     logger.info("   ln(B)[k=%d] = %s", k, out[k - 1])
@@ -405,13 +428,13 @@ class MCEvidence:
             return out
 
         mle = np.zeros((self.batch_plan.nbatch, kmax))
-        t_whiten = t_knn = t_est = 0.0
+        # the spans below add to these, summed over the batches
+        self.timings.update(whiten_s=0.0, knn_s=0.0, estimator_s=0.0)
 
         if covtype == "all" and prewhiten:
             # (prewhiten=False never reads stats — skip the O(N d^2) + eigh)
-            t0 = time.perf_counter()
-            stats = self._stats_all()
-            t_whiten += time.perf_counter() - t0
+            with span("whiten"):
+                stats = self._stats_all()
 
         sum_w = float(np.sum(self.pair.s1.adjusted_weights))
 
@@ -422,28 +445,27 @@ class MCEvidence:
             if pos_lnp:
                 lnl = -lnl
 
-            t0 = time.perf_counter()
-            if prewhiten:
-                if covtype == "single":
-                    stats = whiten_stats(samples)
-                s1w = apply_whiten(samples, stats)
-            else:
-                s1w = samples
-            t_whiten += time.perf_counter() - t0
+            with span("whiten"):
+                if prewhiten:
+                    if covtype == "single":
+                        stats = whiten_stats(samples)
+                    s1w = apply_whiten(samples, stats)
+                else:
+                    s1w = samples
 
             if self.split:
                 samples2, _, _ = self._get_batch("s2", 0, rand)
-                t0 = time.perf_counter()
-                if prewhiten:
-                    # covtype='single': s2 whitened by its own covariance,
-                    # Jacobian stays from s1's stats (reference
-                    # MCEvidence.py:1080-1086, commented-out Jacobian line).
-                    stats2 = whiten_stats(samples2) if covtype == "single" \
-                        else stats
-                    s2w = apply_whiten(samples2, stats2)
-                else:
-                    s2w = samples2
-                t_whiten += time.perf_counter() - t0
+                with span("whiten"):
+                    if prewhiten:
+                        # covtype='single': s2 whitened by its own
+                        # covariance, Jacobian stays from s1's stats
+                        # (reference MCEvidence.py:1080-1086, commented-out
+                        # Jacobian line).
+                        stats2 = (whiten_stats(samples2)
+                                  if covtype == "single" else stats)
+                        s2w = apply_whiten(samples2, stats2)
+                    else:
+                        s2w = samples2
                 k_start = 0
                 ref = s2w
             else:
@@ -452,24 +474,22 @@ class MCEvidence:
 
             log_j = stats.log_jacobian if prewhiten else 0.0
 
-            t0 = time.perf_counter()
-            dknn = exact_knn(s1w, ref, kmax,
-                             refine=self.precision != "fast",
-                             engine=self.engine, device=self.device)
-            t_knn += time.perf_counter() - t0
+            with span("knn"):
+                dknn = exact_knn(s1w, ref, kmax,
+                                 refine=self.precision != "fast",
+                                 engine=self.engine, device=self.device)
 
-            t0 = time.perf_counter()
-            # exact_knn clips k to the reference-partition size (tiny split
-            # halves / small batches): fill the defined columns, NaN the rest
-            row = log_evidence_from_knn_np(
-                dknn, lnl, weight, sum_w, ndim,
-                log_jacobian=log_j, log_prior_volume=log_pv,
-                k_start=k_start, nsamples=S_eff)
-            mle[ib, : len(row)] = row
-            mle[ib, len(row):] = np.nan
-            t_est += time.perf_counter() - t0
+            with span("estimator"):
+                # exact_knn clips k to the reference-partition size (tiny
+                # split halves / small batches): fill the defined columns,
+                # NaN the rest
+                row = log_evidence_from_knn_np(
+                    dknn, lnl, weight, sum_w, ndim,
+                    log_jacobian=log_j, log_prior_volume=log_pv,
+                    k_start=k_start, nsamples=S_eff)
+                mle[ib, : len(row)] = row
+                mle[ib, len(row):] = np.nan
 
-        self.timings.update(whiten_s=t_whiten, knn_s=t_knn, estimator_s=t_est)
         if profile:
             logger.info("profile: %s", self.timings)
 

@@ -12,6 +12,12 @@ The counterpart of ``mcevidence_tpu/ops/knn.py``:
 * ``refine=False`` (the ``fast`` precision): k candidates are selected by
   the exact dispatch and the square roots of their f32 d2 come back as f64.
 
+Spans (``utils/spans.py``) on the refine path: ``host_prep`` (the f64
+centring and the f32 cast on the host), ``upload`` (the copies to the
+device), ``select`` (each pass's launch and index copy), ``host_refine``
+(each pass's f64 refine and margin test) and ``reselect`` (the guard's
+second pass, around its own ``select`` and ``host_refine``).
+
 Engines (``engine=``), each mapped onto the kernels the JAX package runs
 on each path (``selector``):
 
@@ -54,6 +60,7 @@ import numpy as np
 import torch
 
 from ..utils.device import resolve_device
+from ..utils.spans import span
 from .knn_hopper import (SMALLD_MAX, knn_select_batched, knn_select_cuda,
                          knn_select_large_k, knn_select_packed,
                          knn_select_smalld, knn_select_torch,
@@ -184,29 +191,33 @@ def guarded_refine_knn_f64(query64, ref64, idx, k, *, self_mode,
     ``reselect(k_sel)`` once for a larger candidate set, then warns
     (near-exact ties leave the evidence unchanged to O(tie gap)).
     """
-    d_all = _refine_knn_f64_all(query64, ref64, idx, self_mode)
-    d = d_all[:, :k]
-    if d_all.shape[1] > k:
-        boundary = d_all[:, -1]
-        thin = ((d[:, k - 1] > boundary * (1.0 - 2.0 ** -10))
-                & np.isfinite(boundary) & (boundary > 0))
-        if thin.any():
-            if reselect is not None and not _retried:
-                k_sel = d_all.shape[1]
-                logger.info(
-                    "kNN candidate margin thin for %d/%d rows; re-selecting "
-                    "with %d candidates", int(thin.sum()), len(d),
-                    min(4 * k_sel + 8, ref64.shape[0]))
+    with span("host_refine"):
+        d_all = _refine_knn_f64_all(query64, ref64, idx, self_mode)
+        d = d_all[:, :k]
+        n_thin = 0
+        if d_all.shape[1] > k:
+            boundary = d_all[:, -1]
+            n_thin = int(np.count_nonzero(
+                (d[:, k - 1] > boundary * (1.0 - 2.0 ** -10))
+                & np.isfinite(boundary) & (boundary > 0)))
+    if n_thin:
+        if reselect is not None and not _retried:
+            k_sel = d_all.shape[1]
+            logger.info(
+                "kNN candidate margin thin for %d/%d rows; re-selecting "
+                "with %d candidates", n_thin, len(d),
+                min(4 * k_sel + 8, ref64.shape[0]))
+            with span("reselect"):
                 idx2 = reselect(min(4 * k_sel + 8, ref64.shape[0]))
                 return guarded_refine_knn_f64(query64, ref64, idx2, k,
                                               self_mode=self_mode,
                                               reselect=reselect,
                                               _retried=True)
-            logger.warning(
-                "kNN candidate margin thin for %d/%d rows (near-tied "
-                "neighbour distances); parity may be limited by genuine "
-                "ties, which leave the evidence unchanged to O(tie gap)",
-                int(thin.sum()), len(d))
+        logger.warning(
+            "kNN candidate margin thin for %d/%d rows (near-tied "
+            "neighbour distances); parity may be limited by genuine "
+            "ties, which leave the evidence unchanged to O(tie gap)",
+            n_thin, len(d))
     return d
 
 
@@ -285,20 +296,26 @@ def exact_knn(query: np.ndarray, ref: Optional[np.ndarray], k: int,
     k = min(k, nr)
     k_sel = min(nr, k + (pad_candidates if refine else 0))
 
-    q_np, r_np = center_f64(query, None if self_mode else ref64)
-    q32 = torch.as_tensor(q_np, dtype=torch.float32).to(dev)
-    r32 = q32 if self_mode else torch.as_tensor(
-        r_np, dtype=torch.float32).to(dev)
+    with span("host_prep"):
+        q_np, r_np = center_f64(query, None if self_mode else ref64)
+        q32 = torch.as_tensor(q_np, dtype=torch.float32)
+        r32 = None if self_mode else torch.as_tensor(r_np,
+                                                     dtype=torch.float32)
+    with span("upload"):
+        q32 = q32.to(dev)
+        r32 = q32 if self_mode else r32.to(dev)
 
     if not refine:
         d2 = sel(q32, r32, k_sel, self_mode=self_mode)[0]
         return np.sqrt(d2.cpu().numpy().astype(np.float64))[:, :k]
 
     def select(ks):
-        return sel(q32, r32, ks, self_mode=self_mode)[1].cpu().numpy()
+        with span("select"):
+            return sel(q32, r32, ks, self_mode=self_mode)[1].cpu().numpy()
 
     idx = select(k_sel)
     if k_sel < nr:
         return guarded_refine_knn_f64(q_np, r_np, idx, k,
                                       self_mode=self_mode, reselect=select)
-    return _refine_knn_f64_all(q_np, r_np, idx, self_mode)[:, :k]
+    with span("host_refine"):
+        return _refine_knn_f64_all(q_np, r_np, idx, self_mode)[:, :k]

@@ -16,7 +16,10 @@ pools have no counterpart here.  It agrees with the refine path to ~1e-13 in
 ln Z.  Three fallbacks route to the host-refine path (which still selects on
 the card), each logged: ndim > ``DEVICE_NDIM_MAX``, a device-memory plan
 over the budget, and a non-finite sum; thin candidate margins retry once
-with ``4*pad+8`` candidates.
+with ``4*pad+8`` candidates.  Spans (``utils/spans.py``): ``device_prep``
+(the host f64 prep), ``upload`` (the copies to the card), ``device_run``
+(the launches and the wait for the scalars) and ``reselect`` (the
+thin-margin re-run, around its own three).
 
 One ``fast`` estimate (``fast_auto_evidence``, ``fused_auto_evidence``)
 runs all in f32: host f64 centring -> upload -> masked-moment whitening,
@@ -37,6 +40,7 @@ import numpy as np
 import torch
 
 from ..utils.device import resolve_device
+from ..utils.spans import span
 from .estimator import (log_ball_volume_const, log_evidence_from_knn,
                         log_evidence_from_knn_np)
 from .knn import _REFINE_CHUNK_BYTES, exact_knn, selector
@@ -258,53 +262,58 @@ def _device_refine_prepare(samples, lnlike, weights, kmax, pad_candidates,
     dev = resolve_device(device)
     cross = samples2 is not None
     n, ndim = samples.shape
-    s1 = np.asarray(samples, np.float64)
+    with span("device_prep"):
+        s1 = np.asarray(samples, np.float64)
 
-    # Whitening + centring fused into ONE rotation of pre-centred samples:
-    # (s - mu) @ (eigvecs/sqrt(ev)) is the whitened-then-centred result, the
-    # centred GEMM gives the covariance, and centring before the f32 cast
-    # keeps the selection ranking precise for strongly offset chains.
-    def _stats_and_rot(x, xc):
-        cov = (xc.T @ xc) / max(x.shape[0] - 1.0, 1.0)
-        st = whiten_stats(x, cov=cov)
-        if not st.posdef:
-            return 0.0, None
-        return st.log_jacobian, st.eigvecs / np.sqrt(st.eigvals)
+        # Whitening + centring fused into ONE rotation of pre-centred
+        # samples: (s - mu) @ (eigvecs/sqrt(ev)) is the whitened-then-centred
+        # result, the centred GEMM gives the covariance, and centring before
+        # the f32 cast keeps the selection ranking precise for strongly
+        # offset chains.
+        def _stats_and_rot(x, xc):
+            cov = (xc.T @ xc) / max(x.shape[0] - 1.0, 1.0)
+            st = whiten_stats(x, cov=cov)
+            if not st.posdef:
+                return 0.0, None
+            return st.log_jacobian, st.eigvecs / np.sqrt(st.eigvals)
 
-    if cross:
-        s2 = np.asarray(samples2, np.float64)
-        allx = np.concatenate([s1, s2])
-        allc = allx - allx.mean(axis=0)
-        log_j, rot = _stats_and_rot(allx, allc)
-        if rot is None:
-            sw, rw = allc[:n], allc[n:]
+        if cross:
+            s2 = np.asarray(samples2, np.float64)
+            allx = np.concatenate([s1, s2])
+            allc = allx - allx.mean(axis=0)
+            log_j, rot = _stats_and_rot(allx, allc)
+            if rot is None:
+                sw, rw = allc[:n], allc[n:]
+            else:
+                sw = allc[:n] @ rot
+                rw = allc[n:] @ rot
+                # common re-centre on the reference set (selection
+                # precision)
+                mu_w = rw.mean(axis=0)
+                sw = sw - mu_w
+                rw = rw - mu_w
+            rw = np.ascontiguousarray(rw)
         else:
-            sw = allc[:n] @ rot
-            rw = allc[n:] @ rot
-            # common re-centre on the reference set (selection precision)
-            mu_w = rw.mean(axis=0)
-            sw = sw - mu_w
-            rw = rw - mu_w
-    else:
-        s1c = s1 - s1.mean(axis=0)
-        log_j, rot = _stats_and_rot(s1, s1c)
-        sw = s1c if rot is None else s1c @ rot
-    lnl = np.asarray(lnlike, np.float64)
-    lnl_max = float(np.max(lnl))
-    w = np.ones(n) if weights is None else np.asarray(weights, np.float64)
-    # exp(lnL - lnL_max)/w in f64 on the host: the card never evaluates a
-    # transcendental of the estimator
-    scal = np.exp(lnl - lnl_max) / w
+            s1c = s1 - s1.mean(axis=0)
+            log_j, rot = _stats_and_rot(s1, s1c)
+            sw = s1c if rot is None else s1c @ rot
+        sw = np.ascontiguousarray(sw)
+        lnl = np.asarray(lnlike, np.float64)
+        lnl_max = float(np.max(lnl))
+        w = np.ones(n) if weights is None else np.asarray(weights, np.float64)
+        # exp(lnL - lnL_max)/w in f64 on the host: the card never evaluates
+        # a transcendental of the estimator
+        scal = np.exp(lnl - lnl_max) / w
     n_ref = s2.shape[0] if cross else n
     inv_s2 = n_ref ** (2.0 / ndim) / ndim
     k_sel = min(kmax + pad_candidates, n_ref)
-    q64 = torch.as_tensor(np.ascontiguousarray(sw), dtype=torch.float64,
-                          device=dev)
-    tensors = dict(
-        q64=q64,
-        r64=(torch.as_tensor(np.ascontiguousarray(rw), dtype=torch.float64,
-                             device=dev) if cross else q64),
-        scal=torch.as_tensor(scal, dtype=torch.float64, device=dev))
+    with span("upload"):
+        q64 = torch.as_tensor(sw, dtype=torch.float64, device=dev)
+        tensors = dict(
+            q64=q64,
+            r64=(torch.as_tensor(rw, dtype=torch.float64, device=dev)
+                 if cross else q64),
+            scal=torch.as_tensor(scal, dtype=torch.float64, device=dev))
     host = dict(n=n, ndim=ndim, lnl_max=lnl_max, cross=cross, log_j=log_j,
                 sum_w=float(np.sum(w)), inv_s2=inv_s2, n_ref=n_ref,
                 k_sel=k_sel, kmax_eff=min(kmax, k_sel))
@@ -419,10 +428,11 @@ def device_refine_evidence(samples: np.ndarray, lnlike: np.ndarray,
     t, host = _device_refine_prepare(samples, lnlike, weights, kmax,
                                      pad_candidates, samples2=samples2,
                                      device=dev)
-    flat = fused_refine_dotp(
-        t["q64"], t["r64"], t["scal"], n_ref, host["ndim"], host["inv_s2"],
-        k_sel=host["k_sel"], kmax=host["kmax_eff"], engine=engine,
-        self_mode=samples2 is None).cpu().numpy()
+    with span("device_run"):
+        flat = fused_refine_dotp(
+            t["q64"], t["r64"], t["scal"], n_ref, host["ndim"],
+            host["inv_s2"], k_sel=host["k_sel"], kmax=host["kmax_eff"],
+            engine=engine, self_mode=samples2 is None).cpu().numpy()
     if not np.all(np.isfinite(flat[:-1])):
         # (d2*inv_s2)^(ndim/2)*scal left f64 range (far outlier rows): the
         # log-space host path has unlimited range
@@ -436,9 +446,10 @@ def device_refine_evidence(samples: np.ndarray, lnlike: np.ndarray,
         if not _retried and min(kmax + retry_pad, n_ref) > host["k_sel"]:
             logger.info("device-refine: thin margins on %d rows; re-running "
                         "with %d extra candidates", int(flat[-1]), retry_pad)
-            return device_refine_evidence(
-                samples, lnlike, weights, pad_candidates=retry_pad,
-                _retried=True, **fallback)
+            with span("reselect"):
+                return device_refine_evidence(
+                    samples, lnlike, weights, pad_candidates=retry_pad,
+                    _retried=True, **fallback)
         return _device_refine_finalize(flat, host, kmax, prior_volume,
                                        sum_adjusted_weights, warn_thin=True)
     return _device_refine_finalize(flat, host, kmax, prior_volume,

@@ -1,0 +1,87 @@
+"""Spans inside the estimate path.
+
+``span(name)`` marks one step of an estimate.  Under a collector
+(``collect(timings, spans)``, which ``MCEvidence`` holds around its
+constructor's ingest and around each ``evidence()`` call) a span adds its
+``perf_counter`` seconds to ``timings[name + "_s"]``, summed over the
+step's runs, and appends ``(name, parent, start, end)`` to ``spans``
+(``parent`` is the name of the span it ran in, or None).
+
+While a ``torch.profiler`` profile is on, a span is also a
+``record_function("mce.<name>")``, a ``user_annotation`` on the profiler's
+clock beside the kernels and copies.  With no profile on, no
+``record_function`` is entered (it costs ~10 us a span; the check costs
+well under one), and with no collector either, a span only makes that
+check: calls from outside ``MCEvidence`` record nothing.
+
+The collector sits in a ``contextvars.ContextVar``, so the steps deep in
+``ops/`` find it without new arguments, and a thread (the service's
+workers) sees only its own.
+"""
+
+from __future__ import annotations
+
+import contextvars
+from contextlib import contextmanager
+from time import perf_counter
+
+from torch.autograd import _profiler_enabled
+from torch.profiler import record_function
+
+PREFIX = "mce."
+
+_ACTIVE = contextvars.ContextVar("mce_span_collector", default=None)
+
+
+class _Collector:
+    __slots__ = ("timings", "spans", "open")
+
+    def __init__(self, timings: dict, spans: list):
+        self.timings = timings
+        self.spans = spans
+        self.open: list = []           # names of the spans entered, not left
+
+
+@contextmanager
+def collect(timings: dict, spans: list):
+    """Record the spans run inside this block into ``timings`` and
+    ``spans``."""
+    token = _ACTIVE.set(_Collector(timings, spans))
+    try:
+        yield
+    finally:
+        _ACTIVE.reset(token)
+
+
+class span:
+    """``with span(name):`` around one step; see the module docstring."""
+
+    __slots__ = ("name", "_rf", "_col", "_parent", "_t0")
+
+    def __init__(self, name: str):
+        self.name = name
+
+    def __enter__(self):
+        self._rf = None
+        if _profiler_enabled():
+            self._rf = record_function(PREFIX + self.name)
+            self._rf.__enter__()
+        col = self._col = _ACTIVE.get()
+        if col is not None:
+            self._parent = col.open[-1] if col.open else None
+            col.open.append(self.name)
+            self._t0 = perf_counter()
+        return self
+
+    def __exit__(self, *exc):
+        col = self._col
+        if col is not None:
+            t1 = perf_counter()
+            timings = col.timings
+            col.open.pop()
+            key = self.name + "_s"
+            timings[key] = timings.get(key, 0.0) + (t1 - self._t0)
+            col.spans.append((self.name, self._parent, self._t0, t1))
+        if self._rf is not None:
+            self._rf.__exit__(*exc)
+        return False
