@@ -31,7 +31,8 @@ baseline's wall, whichever ran), the parity fields, plus
 ``evidence_fn_wall_s`` (median of 3 warm ``evidence_fn`` calls in each
 precision), ``refine_split_s`` (refine's ``knn_s``, the fastest of 7
 ``exact_knn`` calls, and that call's parts: the first-pass selection, the
-host f64 refine, the guard's reselection and the rest) and ``launches``
+f64 refine on the card and its fetch, the guard's reselection and the
+rest) and ``launches``
 (the kernel wrappers' launch counts over the run, and ``plain_on_cuda``,
 the CUDA tensors that reached the plain selection).
 On any exception, or when a phase outlives its deadline, the last line is a
@@ -213,11 +214,12 @@ def refine_split(white, kmax, device):
     """One refine-precision ``ops/knn.py:exact_knn(white, None, kmax)``
     call, timed in parts by the program's own spans (``utils/spans.py``).
     Returns (its distances, the split): ``kernel``, the first pass's
-    ``select`` span, the host's wait for the launch and the index copy;
-    ``host_refine``, the first pass's host f64 refine and margin test;
-    ``reselect``, the guard's reselection if it fired (its selection and
-    refine); ``rest``, the call's wall less those (the host prep, the
-    upload);
+    ``select`` span, the host's wait for the launch and for the selection
+    to finish (no index copy: the indices stay on the card);
+    ``host_refine``, the first pass's f64 refine and margin test on the
+    card and the fetch of the k distances; ``reselect``, the guard's
+    reselection if it fired (its selection and refine); ``rest``, the
+    call's wall less those (the host centring, the upload);
     ``knn_s``, the call's wall."""
     from .ops.knn import exact_knn
     from .utils.spans import collect, span

@@ -95,8 +95,9 @@ def build_parser() -> ArgumentParser:
                         "fails without a GPU) or 'cpu'")
     p.add_argument("--precision", default="refine",
                    choices=["device", "refine", "fast"],
-                   help="'refine': f32 select + host f64 refinement "
-                        "(sklearn parity ~1e-14); 'device': f32 select + "
+                   help="'refine': f32 select + f64 refinement on "
+                        "--device, k distances fetched (sklearn parity "
+                        "~1e-14); 'device': f32 select + "
                         "f64 refinement and reduction on --device, "
                         "scalars-only fetch (~1e-13 of refine); 'fast': the "
                         "f32 selection distances used directly (~1e-3)")

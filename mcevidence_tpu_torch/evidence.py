@@ -6,7 +6,7 @@ is the functional core for users who already hold arrays.  Both mirror
 ``mcevidence_tpu.evidence`` on its default path, ``precision="refine"``:
 
   host ingest (burn/thin/split) -> host f64 whitening -> f32 kNN candidate
-  selection on ``device`` -> host f64 refinement -> host f64 estimator
+  selection and f64 refinement on ``device`` -> host f64 estimator
 
 which matches a float64 sklearn/numpy oracle to ~1e-9 in ln Z; on
 ``precision="device"`` (``ops/pipeline.py``), which selects, refines in f64

@@ -1,22 +1,27 @@
-"""Exact k-nearest-neighbour distances: f32 selection on the card, f64 refine.
+"""Exact k-nearest-neighbour distances: f32 selection and f64 refine on the card.
 
 The counterpart of ``mcevidence_tpu/ops/knn.py``:
 
-* selection: the reference-set-centred f64 coordinates are cast to f32 and
-  k_sel = k + pad candidates per row are selected on ``device``.
-* refinement (``refine=True``, the default): only the candidates' indices
-  come back to the host; their distances are recomputed in f64 with the
-  cancellation-free difference form and re-sorted, and a sufficiency guard
-  re-selects once with 4*k_sel+8 candidates when the k-th refined distance
-  sits within 2^-10 of the candidate boundary.
+* selection: the reference-set-centred f64 coordinates are uploaded, cast
+  to f32 on ``device`` (the same IEEE rounding as a host cast) and k_sel =
+  k + pad candidates per row are selected there.
+* refinement (``refine=True``, the default): the candidates' distances are
+  recomputed in f64 on ``device`` with the cancellation-free difference
+  form and re-sorted (``refined_d2_chunks``, which the device precision
+  shares), and a sufficiency guard re-selects once with 4*k_sel+8
+  candidates when the k-th refined distance sits within 2^-10 of the
+  candidate boundary (``thin_rows``).  Only the (Nq, k) distances and the
+  thin count come back to the host, in one copy.
+  ``guarded_refine_knn_f64`` is the same refine and guard in numpy on host
+  indices, for the ring, whose candidates come from several ranks.
 * ``refine=False`` (the ``fast`` precision): k candidates are selected by
   the exact dispatch and the square roots of their f32 d2 come back as f64.
 
 Spans (``utils/spans.py``) on the refine path: ``host_prep`` (the f64
-centring and the f32 cast on the host), ``upload`` (the copies to the
-device), ``select`` (each pass's launch and index copy), ``host_refine``
-(each pass's f64 refine and margin test) and ``reselect`` (the guard's
-second pass, around its own ``select`` and ``host_refine``).
+centring), ``upload`` (the f64 copies to the device and the f32 cast
+there), ``select`` (each pass's launch and the wait for it), ``host_refine``
+(each pass's f64 refine, margin test and fetch) and ``reselect`` (the
+guard's second pass, around its own ``select`` and ``host_refine``).
 
 Engines (``engine=``), each mapped onto the kernels the JAX package runs
 on each path (``selector``):
@@ -181,44 +186,56 @@ def center_f64(query64: np.ndarray,
     return q, r
 
 
-def guarded_refine_knn_f64(query64, ref64, idx, k, *, self_mode,
-                           reselect=None, _retried=False) -> np.ndarray:
-    """f64 candidate refinement + the candidate-sufficiency guard.
+def thin_rows(kth, boundary):
+    """The candidate-sufficiency test, on numpy arrays or tensors of sorted
+    refined distances: rows whose k-th distance ``kth`` sits within the
+    f32/packed ranking noise (~2^-11 relative) of the worst kept candidate
+    ``boundary``, which is finite and > 0."""
+    return ((kth > boundary * (1.0 - 2.0 ** -10)) & (boundary > 0)
+            & (boundary < math.inf))
 
-    Refines all candidates in ``idx`` and checks that the k-th refined
-    distance sits inside the candidate boundary by more than the f32/packed
-    ranking noise (~2^-11 relative); on a thin margin, calls
-    ``reselect(k_sel)`` once for a larger candidate set, then warns
-    (near-exact ties leave the evidence unchanged to O(tie gap)).
-    """
-    with span("host_refine"):
-        d_all = _refine_knn_f64_all(query64, ref64, idx, self_mode)
-        d = d_all[:, :k]
-        n_thin = 0
-        if d_all.shape[1] > k:
-            boundary = d_all[:, -1]
-            n_thin = int(np.count_nonzero(
-                (d[:, k - 1] > boundary * (1.0 - 2.0 ** -10))
-                & np.isfinite(boundary) & (boundary > 0)))
+
+def _guarded(d, n_thin, k_sel, n_ref, again):
+    """The guard's policy on a first pass's distances ``d`` with ``n_thin``
+    thin rows out of ``k_sel`` candidates: re-select once through
+    ``again(k_sel')`` -> (d, n_thin) with k_sel' = 4*k_sel+8 (at most
+    ``n_ref``), then warn if rows stay thin (near-exact ties leave the
+    evidence unchanged to O(tie gap)).  ``again`` None: warn only."""
+    if n_thin and again is not None:
+        k_sel = min(4 * k_sel + 8, n_ref)
+        logger.info("kNN candidate margin thin for %d/%d rows; re-selecting "
+                    "with %d candidates", n_thin, len(d), k_sel)
+        with span("reselect"):
+            d, n_thin = again(k_sel)
     if n_thin:
-        if reselect is not None and not _retried:
-            k_sel = d_all.shape[1]
-            logger.info(
-                "kNN candidate margin thin for %d/%d rows; re-selecting "
-                "with %d candidates", n_thin, len(d),
-                min(4 * k_sel + 8, ref64.shape[0]))
-            with span("reselect"):
-                idx2 = reselect(min(4 * k_sel + 8, ref64.shape[0]))
-                return guarded_refine_knn_f64(query64, ref64, idx2, k,
-                                              self_mode=self_mode,
-                                              reselect=reselect,
-                                              _retried=True)
         logger.warning(
             "kNN candidate margin thin for %d/%d rows (near-tied "
             "neighbour distances); parity may be limited by genuine "
             "ties, which leave the evidence unchanged to O(tie gap)",
             n_thin, len(d))
     return d
+
+
+def guarded_refine_knn_f64(query64, ref64, idx, k, *, self_mode,
+                           reselect=None) -> np.ndarray:
+    """f64 candidate refinement + the candidate-sufficiency guard, on the
+    host (numpy) for host indices.
+
+    Refines all candidates in ``idx`` and checks that the k-th refined
+    distance sits inside the candidate boundary (``thin_rows``); on a thin
+    margin, calls ``reselect(k_sel)`` once for a larger candidate set,
+    then warns (``_guarded``).
+    """
+    def refine(ic):
+        with span("host_refine"):
+            d_all = _refine_knn_f64_all(query64, ref64, ic, self_mode)
+            n_thin = 0
+            if d_all.shape[1] > k:
+                n_thin = int(np.count_nonzero(
+                    thin_rows(d_all[:, k - 1], d_all[:, -1])))
+        return d_all[:, :k], n_thin
+    again = None if reselect is None else (lambda ks: refine(reselect(ks)))
+    return _guarded(*refine(idx), np.shape(idx)[1], ref64.shape[0], again)
 
 
 def refine_knn_f64(query64: np.ndarray, ref64: np.ndarray,
@@ -234,23 +251,71 @@ def refine_knn_f64(query64: np.ndarray, ref64: np.ndarray,
     return _refine_knn_f64_all(query64, ref64, idx, self_mode)[:, :k]
 
 
-# peak host memory one refinement chunk may use for its (rows, k_sel, d)
-# f64 workspace; chunking over query rows keeps the host refine flat in RAM
+# peak memory one refinement chunk may use for its (rows, k_sel, d) f64
+# workspace; chunking over query rows keeps the refine flat in memory
 _REFINE_CHUNK_BYTES = int(float(os.environ.get(
     "MCE_REFINE_CHUNK_MB", "256")) * 2 ** 20)
 
 
-def _refine_knn_f64_all(query64, ref64, idx, self_mode) -> np.ndarray:
-    """All candidate distances, refined in f64 and sorted ascending.
+def refine_chunk_rows(k_sel: int, d: int) -> int:
+    """Query rows per refinement chunk: ``_REFINE_CHUNK_BYTES`` over the
+    diff, its square and the d2 sum, ~3 live f64 (rows, k_sel, d)
+    buffers."""
+    return max(1, _REFINE_CHUNK_BYTES // max(3 * k_sel * d * 8, 1))
 
-    Streams over query rows in ~_REFINE_CHUNK_BYTES chunks: the (rows,
-    k_sel, d) difference workspace is the refine path's only
-    N-proportional host allocation."""
+
+def refined_d2_chunks(q64, r64, idx, *, self_mode: bool, offset: int = 0):
+    """The candidates' squared distances in f64 on the tensors' device.
+
+    ``q64`` (Nq, d) and ``r64`` (Nr, d) f64 tensors, ``idx`` (Nq, k_sel)
+    candidate rows of ``r64`` (-1: absent, distance inf).  In self mode
+    query row i is reference row ``offset`` + i, whose own candidate is set
+    to distance 0.  Yields (lo, hi, d2) for the query rows lo..hi, in
+    chunks of ``refine_chunk_rows``, d2 (hi - lo, k_sel) sorted ascending
+    along each row."""
+    nq, k_sel = idx.shape
+    dev = q64.device
+    rows = refine_chunk_rows(k_sel, q64.shape[1])
+    for lo in range(0, nq, rows):
+        hi = min(nq, lo + rows)
+        ic = idx[lo:hi].long()
+        diff = q64[lo:hi, None, :] - r64[ic.clamp(min=0)]
+        d2 = (diff * diff).sum(-1).masked_fill(ic < 0, math.inf)
+        if self_mode:
+            own = torch.arange(offset + lo, offset + hi, device=dev)[:, None]
+            d2 = d2.masked_fill(ic == own, 0.0)
+        yield lo, hi, torch.sort(d2, dim=1).values
+
+
+def refine_knn_on_device(q64, r64, idx, k: int, *, self_mode: bool):
+    """One refine pass on the tensors' device: the sorted f64 distances of
+    every candidate in ``idx`` (``refined_d2_chunks``), their k smallest and
+    the number of ``thin_rows`` (counted when ``idx`` holds more than k
+    candidates), fetched in ONE copy.  Returns (the (Nq, k) f64 numpy
+    distances, the thin count)."""
+    nq, k_sel = idx.shape
+    # the distances, then the count (exact in f64 below 2^53)
+    buf = q64.new_zeros(nq * k + 1)
+    out = buf[:-1].view(nq, k)
+    for lo, hi, d2 in refined_d2_chunks(q64, r64, idx, self_mode=self_mode):
+        d = d2.sqrt()
+        out[lo:hi] = d[:, :k]
+        if k_sel > k:
+            buf[-1] += thin_rows(d[:, k - 1], d[:, -1]).sum()
+    host = buf.cpu().numpy()
+    return host[:-1].reshape(nq, k), int(host[-1])
+
+
+def _refine_knn_f64_all(query64, ref64, idx, self_mode) -> np.ndarray:
+    """All candidate distances, refined in f64 on the host and sorted
+    ascending.
+
+    Streams over query rows in ``refine_chunk_rows`` chunks: the (rows,
+    k_sel, d) difference workspace is the host refine's only
+    N-proportional allocation."""
     idx = np.asarray(idx)
     nq, k_sel = idx.shape
-    d = query64.shape[1]
-    # diff + einsum intermediates: ~3 live f64 buffers of (chunk, k_sel, d)
-    rows_per_chunk = max(1, _REFINE_CHUNK_BYTES // max(3 * k_sel * d * 8, 1))
+    rows_per_chunk = refine_chunk_rows(k_sel, query64.shape[1])
     out = np.empty((nq, k_sel), np.float64)
     for lo in range(0, nq, rows_per_chunk):
         hi = min(nq, lo + rows_per_chunk)
@@ -276,13 +341,14 @@ def exact_knn(query: np.ndarray, ref: Optional[np.ndarray], k: int,
       ref:   (Nr, d) float64 whitened reference set, or None for self mode
              (auto-evidence: ref = query, self match included as column 0).
       k:     number of distance columns to return.
-      refine: recompute the candidates' distances in f64 on the host (the
+      refine: recompute the candidates' distances in f64 on ``device`` (the
         parity pipeline); False returns the selection's f32 distances (the
         ``fast`` precision; truncated under the packed engines).
       pad_candidates: extra f32-selected candidates per row when refining;
         guards against f32 rounding flipping the selection boundary.
       engine: see the module docstring.
-      device: where the selection runs; ``"cuda"`` raises without a card.
+      device: where the selection and the refine run; ``"cuda"`` raises
+        without a card.
 
     Returns:
       (Nq, k) float64 sorted ascending distances.
@@ -298,24 +364,26 @@ def exact_knn(query: np.ndarray, ref: Optional[np.ndarray], k: int,
 
     with span("host_prep"):
         q_np, r_np = center_f64(query, None if self_mode else ref64)
-        q32 = torch.as_tensor(q_np, dtype=torch.float32)
-        r32 = None if self_mode else torch.as_tensor(r_np,
-                                                     dtype=torch.float32)
     with span("upload"):
-        q32 = q32.to(dev)
-        r32 = q32 if self_mode else r32.to(dev)
+        q64 = torch.as_tensor(q_np, device=dev)
+        r64 = q64 if self_mode else torch.as_tensor(r_np, device=dev)
+        q32 = q64.to(torch.float32)
+        r32 = q32 if self_mode else r64.to(torch.float32)
 
     if not refine:
         d2 = sel(q32, r32, k_sel, self_mode=self_mode)[0]
         return np.sqrt(d2.cpu().numpy().astype(np.float64))[:, :k]
 
-    def select(ks):
+    def refine_pass(ks):
         with span("select"):
-            return sel(q32, r32, ks, self_mode=self_mode)[1].cpu().numpy()
+            idx = sel(q32, r32, ks, self_mode=self_mode)[1]
+            if idx.is_cuda:
+                torch.cuda.current_stream(idx.device).synchronize()
+        with span("host_refine"):
+            return refine_knn_on_device(q64, r64, idx, k,
+                                        self_mode=self_mode)
 
-    idx = select(k_sel)
-    if k_sel < nr:
-        return guarded_refine_knn_f64(q_np, r_np, idx, k,
-                                      self_mode=self_mode, reselect=select)
-    with span("host_refine"):
-        return _refine_knn_f64_all(q_np, r_np, idx, self_mode)[:, :k]
+    d, n_thin = refine_pass(k_sel)
+    if k_sel == nr:
+        return d
+    return _guarded(d, n_thin, k_sel, nr, refine_pass)

@@ -13,9 +13,10 @@ estimate runs:
 The card computes in native float64, so the JAX package's double-float
 pairs (``ops/dfloat.py``), its XLA:CPU O0 recompilation and its host staging
 pools have no counterpart here.  It agrees with the refine path to ~1e-13 in
-ln Z.  Three fallbacks route to the host-refine path (which still selects on
-the card), each logged: ndim > ``DEVICE_NDIM_MAX``, a device-memory plan
-over the budget, and a non-finite sum; thin candidate margins retry once
+ln Z.  Three fallbacks route to the host-refine path (host whitening; the
+selection and the f64 refine still run on the card), each logged: ndim >
+``DEVICE_NDIM_MAX``, a device-memory plan over the budget, and a
+non-finite sum; thin candidate margins retry once
 with ``4*pad+8`` candidates.  Spans (``utils/spans.py``): ``device_prep``
 (the host f64 prep), ``upload`` (the copies to the card), ``device_run``
 (the launches and the wait for the scalars) and ``reselect`` (the
@@ -43,7 +44,7 @@ from ..utils.device import resolve_device
 from ..utils.spans import span
 from .estimator import (log_ball_volume_const, log_evidence_from_knn,
                         log_evidence_from_knn_np)
-from .knn import _REFINE_CHUNK_BYTES, exact_knn, selector
+from .knn import exact_knn, refine_chunk_rows, refined_d2_chunks, selector
 from .knn_hopper import _padded_width
 from .whiten import apply_whiten, whiten_masked, whiten_stats
 
@@ -121,13 +122,6 @@ def fast_auto_evidence(samples: np.ndarray, lnlike: np.ndarray,
     return mle[1:]
 
 
-def _gather_chunk_rows(k_sel: int, d: int) -> int:
-    """Query rows per refinement chunk: the host refine's chunk budget
-    (``MCE_REFINE_CHUNK_MB``) for the diff, its square and the d2 sum, ~3
-    live f64 (rows, k_sel, d) buffers."""
-    return max(1, _REFINE_CHUNK_BYTES // max(3 * k_sel * d * 8, 1))
-
-
 def estimate_device_refine_bytes(n: int, n_ref: int, ndim: int, k_sel: int,
                                  cross: bool = False) -> int:
     """Device memory one device-refine estimate plans for, in bytes.
@@ -135,7 +129,7 @@ def estimate_device_refine_bytes(n: int, n_ref: int, ndim: int, k_sel: int,
     The f64 coordinates and their f32 copy (the kernel wrapper's copy is
     padded to 8 or 16 columns), the selection's d2 and indices, the f64
     vectors, and ONE chunk of the candidate refinement: the f64 gather is
-    chunked over query rows (``_gather_chunk_rows``), so it does not set
+    chunked over query rows (``refine_chunk_rows``), so it does not set
     the N ceiling.  ``cross`` must mirror the dispatch (``samples2`` given):
     a second chain gets coordinates of its own even at an equal row
     count."""
@@ -143,7 +137,7 @@ def estimate_device_refine_bytes(n: int, n_ref: int, ndim: int, k_sel: int,
     coords = rows * (ndim * (8 + 4) + _padded_width(ndim) * 4)
     select_out = n * k_sel * (4 + 4)
     vectors = 2 * n * 8
-    chunk = min(n, _gather_chunk_rows(k_sel, ndim))
+    chunk = min(n, refine_chunk_rows(k_sel, ndim))
     gather = chunk * k_sel * (3 * ndim * 8 + 2 * 8 + 8)
     return coords + select_out + vectors + gather
 
@@ -172,22 +166,14 @@ def _refine_dotp_post(q64, r64, scal, idx, *, ndim: int, inv_s2: float,
     In self mode query row i is reference row ``offset`` + i (a shard of
     the query rows), whose own candidate is set to distance 0.
 
-    Streams over query rows in chunks of ``_gather_chunk_rows``; only the
-    (kmax,) sum and the count live across chunks."""
-    nq, k_sel = idx.shape
+    Streams over query rows in the chunks of ``refined_d2_chunks``; only
+    the (kmax,) sum and the count live across chunks."""
+    k_sel = idx.shape[1]
     dev = q64.device
     acc = torch.zeros(kmax, dtype=torch.float64, device=dev)
     thin = torch.zeros((), dtype=torch.float64, device=dev)
-    rows = _gather_chunk_rows(k_sel, q64.shape[1])
-    for lo in range(0, nq, rows):
-        hi = min(nq, lo + rows)
-        ic = idx[lo:hi].long()
-        diff = q64[lo:hi, None, :] - r64[ic.clamp(min=0)]
-        d2 = (diff * diff).sum(-1).masked_fill(ic < 0, math.inf)
-        if self_mode:
-            own = torch.arange(offset + lo, offset + hi, device=dev)[:, None]
-            d2 = d2.masked_fill(ic == own, 0.0)
-        d2 = torch.sort(d2, dim=1).values
+    for lo, hi, d2 in refined_d2_chunks(q64, r64, idx, self_mode=self_mode,
+                                        offset=offset):
         if k_sel > kmax:
             # rows whose kmax-th refined d2 sits within the selection's
             # ranking noise of the worst kept candidate; squared distances,

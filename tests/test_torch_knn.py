@@ -15,8 +15,9 @@ on the card and skip elsewhere.
 """
 
 import itertools
-import os
 import logging
+import math
+import os
 
 import numpy as np
 import pytest
@@ -30,8 +31,10 @@ from mcevidence_tpu.ops.knn_pallas import (knn_select_pallas,
                                            knn_select_pallas_packed2_batched,
                                            knn_select_pallas_smalld,
                                            knn_select_pallas_smalld_batched)
-from mcevidence_tpu_torch.ops import _build
+from mcevidence_tpu_torch.ops import _build, pipeline
+from mcevidence_tpu_torch.ops import knn as knn_mod
 from mcevidence_tpu_torch.ops import knn_hopper as kh
+from mcevidence_tpu_torch.bench import synthetic_chain
 from mcevidence_tpu_torch.ops.knn import exact_knn, resolve_engine, selector
 
 REL_TOL = 2.0 ** -10
@@ -344,6 +347,170 @@ def test_exact_knn_unrefined_matches_reference(case):
     np.testing.assert_allclose(got, want, rtol=2e-5, atol=1e-5)
     refined = exact_knn(query, ref, k, device="cpu")
     np.testing.assert_allclose(got, refined, rtol=1e-6, atol=1e-7)
+
+
+def _host_composition(query, ref, k, pad=4):
+    """``exact_knn(refine=True)`` as it was composed before the refine moved
+    to the selection's device: the f32 cast on the host, the plain
+    selection, and the numpy refine and guard on the host indices."""
+    self_mode = ref is None
+    q_np, r_np = knn_mod.center_f64(query, ref)
+    q32 = torch.as_tensor(q_np, dtype=torch.float32)
+    r32 = q32 if self_mode else torch.as_tensor(r_np, dtype=torch.float32)
+    nr = r_np.shape[0]
+    k = min(k, nr)
+    k_sel = min(nr, k + pad)
+
+    def select(ks):
+        return kh.knn_select_torch(q32, r32, ks,
+                                   self_mode=self_mode)[1].numpy()
+    if k_sel == nr:
+        return knn_mod.refine_knn_f64(q_np, r_np, select(k_sel), k,
+                                      self_mode)
+    return knn_mod.guarded_refine_knn_f64(q_np, r_np, select(k_sel), k,
+                                          self_mode=self_mode,
+                                          reselect=select)
+
+
+# the device refine sums over d in another order than numpy's einsum: a few
+# ulps of each distance
+REFINE_RTOL = 2e-15
+
+
+@pytest.mark.parametrize("case", ["self", "cross", "offset", "lattice",
+                                  "k_sel_is_nr"])
+def test_exact_knn_matches_the_host_composition(case):
+    if case == "k_sel_is_nr":
+        rng = np.random.default_rng(6)
+        query, ref, k = rng.normal(size=(50, 3)), rng.normal(size=(7, 3)), 5
+    else:
+        query, ref, k = _knn_inputs(np.random.default_rng(5), case)
+    np.testing.assert_allclose(exact_knn(query, ref, k, device="cpu"),
+                               _host_composition(query, ref, k),
+                               rtol=REFINE_RTOL, atol=0)
+
+
+@pytest.mark.parametrize("chunk_bytes", [None, 6000])
+@pytest.mark.parametrize("self_mode", [True, False])
+def test_device_refine_matches_host_refine(self_mode, chunk_bytes,
+                                           monkeypatch):
+    """``refine_knn_on_device`` on CPU tensors against the numpy refine on
+    the same indices: absent (-1) slots, own rows, chunk boundaries."""
+    if chunk_bytes:
+        # 5-row chunks, the last one partial
+        monkeypatch.setattr(knn_mod, "_REFINE_CHUNK_BYTES", chunk_bytes)
+    rng = np.random.default_rng(31)
+    q = rng.normal(size=(303, 5))
+    # self mode on a perturbed copy: the own candidate's 0 comes from the
+    # mask, not from a zero difference
+    r = (q + 1e-6 * rng.normal(size=q.shape) if self_mode
+         else rng.normal(size=(420, 5)))
+    k_sel = 9
+    idx = rng.integers(0, len(r), size=(len(q), k_sel))
+    if self_mode:
+        idx[:, 0] = np.arange(len(q))
+    idx[rng.random(idx.shape) < 0.1] = -1
+    want = knn_mod._refine_knn_f64_all(q, r, idx, self_mode)
+    assert np.isinf(want).any() and (not self_mode or (want == 0).any())
+    assert (knn_mod.refine_chunk_rows(k_sel, 5) == 5) == bool(chunk_bytes)
+    got, n_thin = knn_mod.refine_knn_on_device(
+        torch.from_numpy(q), torch.from_numpy(r), torch.from_numpy(idx),
+        k_sel, self_mode=self_mode)
+    assert got.shape == (len(q), k_sel) and n_thin == 0
+    np.testing.assert_allclose(got, want, rtol=REFINE_RTOL, atol=0)
+
+
+@pytest.mark.parametrize("case", ["odd_lattice", "gaussian"])
+def test_device_thin_count_matches_the_host_guard(case):
+    """The device refine's thin count against the host guard's margin test,
+    written out as it reads in the host guard, on the same candidates."""
+    if case == "odd_lattice":
+        x, k = _lattice(11).astype(np.float64), 2
+    else:
+        x, _ = synthetic_chain(3000, 8, seed=8)
+        k = 5
+    q_np, _ = knn_mod.center_f64(x)
+    q32 = torch.as_tensor(q_np, dtype=torch.float32)
+    idx = kh.knn_select_torch(q32, q32, k + 4, self_mode=True)[1]
+    d_all = knn_mod._refine_knn_f64_all(q_np, q_np, idx.numpy(), True)
+    boundary = d_all[:, -1]
+    want = int(np.count_nonzero(
+        (d_all[:, k - 1] > boundary * (1.0 - 2.0 ** -10))
+        & np.isfinite(boundary) & (boundary > 0)))
+    q64 = torch.from_numpy(q_np)
+    got_d, got = knn_mod.refine_knn_on_device(q64, q64, idx, k,
+                                              self_mode=True)
+    assert got == want
+    assert (want > 0) == (case == "odd_lattice")
+    np.testing.assert_allclose(got_d, d_all[:, :k], rtol=REFINE_RTOL, atol=0)
+
+
+@pytest.mark.parametrize("backend", ["numpy", "torch"])
+def test_thin_rows_is_the_guards_margin(backend):
+    """``thin_rows`` on numpy arrays and on tensors: the k-th distance
+    within 2^-10 of a finite, positive boundary, and nothing else."""
+    eps = 2.0 ** -10
+    boundary = np.array([1.0, 1.0, 1.0, 4.0, np.inf, 0.0, np.nan, 2.0])
+    kth = np.array([1 - 0.5 * eps, 1 - 1.5 * eps, 1.0, 4.0, 3.0, 0.0,
+                    1.0, np.nan])
+    want = [True, False, True, True, False, False, False, False]
+    if backend == "torch":
+        kth, boundary = torch.from_numpy(kth), torch.from_numpy(boundary)
+    got = knn_mod.thin_rows(kth, boundary)
+    assert np.asarray(got).tolist() == want
+
+
+def _refine_dotp_post_inline(q64, r64, scal, idx, *, ndim, inv_s2, kmax,
+                             self_mode, offset=0):
+    """``pipeline._refine_dotp_post`` with its candidates' d2 written
+    inline, as it read before it shared ``refined_d2_chunks``."""
+    nq, k_sel = idx.shape
+    dev = q64.device
+    acc = torch.zeros(kmax, dtype=torch.float64, device=dev)
+    thin = torch.zeros((), dtype=torch.float64, device=dev)
+    rows = max(1, knn_mod._REFINE_CHUNK_BYTES
+               // max(3 * k_sel * q64.shape[1] * 8, 1))
+    for lo in range(0, nq, rows):
+        hi = min(nq, lo + rows)
+        ic = idx[lo:hi].long()
+        diff = q64[lo:hi, None, :] - r64[ic.clamp(min=0)]
+        d2 = (diff * diff).sum(-1).masked_fill(ic < 0, math.inf)
+        if self_mode:
+            own = torch.arange(offset + lo, offset + hi, device=dev)[:, None]
+            d2 = d2.masked_fill(ic == own, 0.0)
+        d2 = torch.sort(d2, dim=1).values
+        if k_sel > kmax:
+            kth, last = d2[:, kmax - 1], d2[:, -1]
+            thin += ((kth > last * (1.0 - 2.0 ** -9)) & torch.isfinite(last)
+                     & (last > 0)).sum()
+        z = d2[:, :kmax] * inv_s2
+        term = torch.pow(z, 0.5 * ndim) * scal[lo:hi, None]
+        acc += torch.where(torch.isfinite(z), term, 0.0).sum(dim=0)
+    return torch.cat([acc, thin[None]])
+
+
+@pytest.mark.parametrize("chunk_bytes", [None, 20000])
+@pytest.mark.parametrize("case", ["self", "cross", "self_shard"])
+def test_device_refine_post_is_unchanged(case, chunk_bytes, monkeypatch):
+    """The device precision's refine and reduction, now on the shared
+    ``refined_d2_chunks``, equal to the inline formula bit for bit."""
+    if chunk_bytes:
+        monkeypatch.setattr(knn_mod, "_REFINE_CHUNK_BYTES", chunk_bytes)
+    rng = np.random.default_rng(41)
+    x = torch.from_numpy(rng.normal(size=(1500, 8)))
+    r64 = x if case != "cross" else torch.from_numpy(
+        rng.normal(size=(1700, 8)))
+    lo = 400 if case == "self_shard" else 0
+    q64 = x[lo:lo + 700] if case == "self_shard" else x
+    scal = torch.from_numpy(rng.random(len(q64)))
+    q32, r32 = q64.to(torch.float32), r64.to(torch.float32)
+    self_mode = case != "cross"
+    # a shard of the query rows selects without the self pin
+    idx = kh.knn_select_torch(q32, r32, 9, self_mode=case == "self")[1]
+    kw = dict(ndim=8, inv_s2=3.7, kmax=5, self_mode=self_mode, offset=lo)
+    got = pipeline._refine_dotp_post(q64, r64, scal, idx, **kw)
+    assert torch.equal(got, _refine_dotp_post_inline(q64, r64, scal, idx,
+                                                     **kw))
 
 
 def _smalld_cases():
