@@ -391,7 +391,8 @@ def write_grid(outdir, datasets, rng):
 
 
 class StageLog(logging.Handler):
-    """Collects the grid driver's per-dataset stage lines."""
+    """Collects the grid driver's per-dataset stage records (the seconds
+    of each stage span and the counts, ``planck._stage_log``)."""
 
     def __init__(self):
         super().__init__(logging.INFO)
@@ -399,9 +400,7 @@ class StageLog(logging.Handler):
 
     def emit(self, record):
         if record.getMessage().startswith("dataset stages"):
-            ingest, parse_wait, device = record.args
-            self.stages.append({"ingest_s": ingest, "parse_wait_s":
-                                parse_wait, "device_fetch_s": device})
+            self.stages.append(dict(record.args))
 
 
 def run_cli(argv):

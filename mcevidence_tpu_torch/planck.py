@@ -25,6 +25,17 @@ Chain text parsing, the host-side bottleneck, uses the native C++ loader
 with a prefetch thread, so the next model's files parse while the card works
 on the current one.  pandas is imported only where tables are built, read
 or pickled: the evidence matrix needs numpy and torch alone.
+
+Spans (``utils/spans.py``): ``dataset_evidence`` holds a collector for its
+dataset, under which the stages are ``grid_parse_wait`` (blocked on a parse
+future), ``grid_prologue`` (``.paramnames``, ``.ranges``, the H0 column and
+the H0 reweight), ``grid_launch`` (a cell's prepare and launch; at refine
+and fast, and for wide cells, the batched or per-cell call, which launches
+and fetches in one), ``grid_fetch`` (the fetch and the finalize),
+``grid_rerun`` (the synchronous re-run of a thin-margin cell) and
+``grid_tables`` (the frame; in ``run_grid`` and ``main`` also the txt, the
+csv and the aggregate, under the caller's collector), with the counts
+``grid_cells`` and ``grid_reruns``.  ``_stage_log`` logs them.
 """
 
 from __future__ import annotations
@@ -34,15 +45,16 @@ import logging
 import os
 import pickle
 import sys
-import time
 from argparse import ArgumentParser
 from concurrent.futures import ThreadPoolExecutor
+from contextlib import contextmanager
 from typing import Dict, List, Optional, Sequence
 
 import numpy as np
 
 from .priors.params_info import params_info
 from .utils.logging import configure
+from .utils.spans import collect, count, span
 
 logger = logging.getLogger(__name__)
 
@@ -87,6 +99,9 @@ MODELS: List[str] = [
 ]
 
 INFO_COLS = ["PriorVol", "ndim", "N_read", "N_used"]
+
+STAGES = ("grid_parse_wait", "grid_prologue", "grid_launch", "grid_fetch",
+          "grid_rerun", "grid_tables")
 
 
 # ---------------------------------------------------------------------------
@@ -286,21 +301,19 @@ def _dataset_cells_batched(path_list, names, chain_exts, *, kmax,
         if _glob.glob(fname + "*.txt")}
 
     vol_norm = 1.0
-    t_wait = [0.0]          # time blocked on parse futures (not overlapped)
-    t_all = time.perf_counter()
     cells = []   # (imm, icc, ndim, s1, lnl, w, s2, prior_volume, sumw_adj)
     for imm, (mm, fname) in enumerate(zip(names, path_list)):
-        pro = _model_prologue(mm, fname, info, use_h0_prior, parse_futures,
-                              chain_exts, vol_norm)
+        with span("grid_prologue"):
+            pro = _model_prologue(mm, fname, info, use_h0_prior,
+                                  parse_futures, chain_exts, vol_norm)
         if pro is None:
             continue
         prior_volume, ndim_m, h0i, vol_norm = pro
         nc_read, nc_use = "", ""
         for icc, ext in enumerate(chain_exts):
             try:
-                _t0 = time.perf_counter()
-                pair = parse_futures.pop(fname + ext).result()
-                t_wait[0] += time.perf_counter() - _t0
+                with span("grid_parse_wait"):
+                    pair = parse_futures.pop(fname + ext).result()
                 if isinstance(pair, Exception):
                     raise pair
                 p = pair.s1
@@ -308,8 +321,9 @@ def _dataset_cells_batched(path_list, names, chain_exts, *, kmax,
                 sumw_adj = None
                 if h0i is not None:
                     # quirk Q7: importance reweighting enters only SumW
-                    neg = make_h0_gauss_lnp(h0i)(p.samples)
-                    sumw_adj = float(np.sum(p.weights * np.exp(-neg)))
+                    with span("grid_prologue"):
+                        neg = make_h0_gauss_lnp(h0i)(p.samples)
+                        sumw_adj = float(np.sum(p.weights * np.exp(-neg)))
                 cells.append((imm, icc, ndim_m,
                               p.samples[:, :ndim_m], p.lnp(), p.weights,
                               s2, prior_volume, sumw_adj))
@@ -323,13 +337,7 @@ def _dataset_cells_batched(path_list, names, chain_exts, *, kmax,
         info["N_read"].append(nc_read)
         info["N_used"].append(nc_use)
     pool.shutdown(wait=False)
-    t_ingested = time.perf_counter()
-
-    def _stage_log():
-        logger.info(
-            "dataset stages: ingest %.1fs (parse-wait %.1fs not overlapped), "
-            "device+fetch %.1fs", t_ingested - t_all, t_wait[0],
-            time.perf_counter() - t_ingested)
+    count("grid_cells", len(cells))
 
     if cross and precision == "fast":
         logger.info("batched cross-evidence runs on the refine path")
@@ -345,10 +353,11 @@ def _dataset_cells_batched(path_list, names, chain_exts, *, kmax,
                     len(wide), DEVICE_NDIM_MAX)
         cells = [c for c in cells if c[2] <= DEVICE_NDIM_MAX]
         for (imm, icc, _nd, s1, lnl1, w1, s2, pv, sumw_adj) in wide:
-            mce[imm, icc, :] = evidence_fn(
-                s1, lnl1, weights=w1, samples2=s2, kmax=kmax,
-                prior_volume=pv, sum_adjusted_weights=sumw_adj,
-                precision="refine", engine=engine, device=device)
+            with span("grid_launch"):
+                mce[imm, icc, :] = evidence_fn(
+                    s1, lnl1, weights=w1, samples2=s2, kmax=kmax,
+                    prior_volume=pv, sum_adjusted_weights=sumw_adj,
+                    precision="refine", engine=engine, device=device)
 
     if precision == "device":
         # every cell's selection + f64 refinement + reduction is LAUNCHED
@@ -393,46 +402,54 @@ def _dataset_cells_batched(path_list, names, chain_exts, *, kmax,
                     # the batch is the chunk's true cells: one card needs
                     # no padding to a fixed batch
                     chunk = group[c0:c0 + quantum]
-                    fin = sharded_grid_device_refine_evidence(
-                        [(c[3], c[4], c[5]) for c in chunk],
-                        kmax=kmax,
-                        prior_volumes=[c[7] for c in chunk],
-                        sum_adjusted_weights=[
-                            c[8] if c[8] is not None else float(np.sum(c[5]))
-                            for c in chunk],
-                        chains2=([c[6] for c in chunk] if cross else None),
-                        engine=engine, group=LOCAL, device=device,
-                        defer=True)
+                    with span("grid_launch"):
+                        fin = sharded_grid_device_refine_evidence(
+                            [(c[3], c[4], c[5]) for c in chunk],
+                            kmax=kmax,
+                            prior_volumes=[c[7] for c in chunk],
+                            sum_adjusted_weights=[
+                                c[8] if c[8] is not None
+                                else float(np.sum(c[5])) for c in chunk],
+                            chains2=([c[6] for c in chunk] if cross
+                                     else None),
+                            engine=engine, group=LOCAL, device=device,
+                            defer=True)
                     pend_b.append((chunk, fin))
             for chunk, fin in pend_b:
-                out = fin()
+                with span("grid_fetch"):
+                    out = fin()
                 for (imm, icc, *_), lnz in zip(chunk, out):
                     mce[imm, icc, :] = lnz
             cells = small
         pend = []
         for cell in cells:
-            t, host = _device_refine_prepare(cell[3], cell[4], cell[5],
-                                             kmax, 4, samples2=cell[6],
-                                             device=device)
-            out = fused_refine_dotp(
-                t["q64"], t["r64"], t["scal"], host["n_ref"], host["ndim"],
-                host["inv_s2"], k_sel=host["k_sel"], kmax=host["kmax_eff"],
-                engine=engine, self_mode=not cross)
+            with span("grid_launch"):
+                t, host = _device_refine_prepare(cell[3], cell[4], cell[5],
+                                                 kmax, 4, samples2=cell[6],
+                                                 device=device)
+                out = fused_refine_dotp(
+                    t["q64"], t["r64"], t["scal"], host["n_ref"],
+                    host["ndim"], host["inv_s2"], k_sel=host["k_sel"],
+                    kmax=host["kmax_eff"], engine=engine,
+                    self_mode=not cross)
             pend.append((cell, host, out))
         for (imm, icc, _nd, s1, lnl1, w1, s2, pv, sumw_adj), host, flat \
                 in pend:
-            flat = flat.cpu().numpy()
-            if flat[-1] > 0 or not np.all(np.isfinite(flat[:-1])):
+            with span("grid_fetch"):
+                flat = flat.cpu().numpy()
+                rerun = flat[-1] > 0 or not np.all(np.isfinite(flat[:-1]))
+                if not rerun:
+                    mce[imm, icc, :] = _device_refine_finalize(
+                        flat, host, kmax, pv, sumw_adj)
+            if rerun:
                 # rare thin-margin or overflowing cell: redo synchronously
                 # with the retry/fallback-capable wrapper
-                mce[imm, icc, :] = device_refine_evidence(
-                    s1, lnl1, w1, samples2=s2, kmax=kmax,
-                    prior_volume=pv, sum_adjusted_weights=sumw_adj,
-                    pad_candidates=20, engine=engine, device=device)
-            else:
-                mce[imm, icc, :] = _device_refine_finalize(
-                    flat, host, kmax, pv, sumw_adj)
-        _stage_log()
+                count("grid_reruns")
+                with span("grid_rerun"):
+                    mce[imm, icc, :] = device_refine_evidence(
+                        s1, lnl1, w1, samples2=s2, kmax=kmax,
+                        prior_volume=pv, sum_adjusted_weights=sumw_adj,
+                        pad_candidates=20, engine=engine, device=device)
         return
 
     # one batched call per row-bucket group: a batch holds chains of
@@ -449,24 +466,25 @@ def _dataset_cells_batched(path_list, names, chain_exts, *, kmax,
     for _, group in by_group.items():
         chains = [(c[3], c[4], c[5]) for c in group]
         pv = [c[7] for c in group]
-        if precision == "refine":
-            out = sharded_grid_evidence_refine(
-                chains, kmax=kmax, prior_volumes=pv,
-                sum_adjusted_weights=[
-                    c[8] if c[8] is not None else float(np.sum(c[5]))
-                    for c in group],
-                chains2=[c[6] for c in group] if cross else None,
-                engine=engine, group=LOCAL, device=device)
-        else:
-            shifts = [0.0 if c[8] is None
-                      else float(np.log(c[8]) - np.log(np.sum(c[5])))
-                      for c in group]
-            out = sharded_grid_auto_evidence(
-                chains, kmax=kmax, prior_volumes=pv, sumw_log_shifts=shifts,
-                engine=engine, group=LOCAL, device=device)
+        with span("grid_launch"):
+            if precision == "refine":
+                out = sharded_grid_evidence_refine(
+                    chains, kmax=kmax, prior_volumes=pv,
+                    sum_adjusted_weights=[
+                        c[8] if c[8] is not None else float(np.sum(c[5]))
+                        for c in group],
+                    chains2=[c[6] for c in group] if cross else None,
+                    engine=engine, group=LOCAL, device=device)
+            else:
+                shifts = [0.0 if c[8] is None
+                          else float(np.log(c[8]) - np.log(np.sum(c[5])))
+                          for c in group]
+                out = sharded_grid_auto_evidence(
+                    chains, kmax=kmax, prior_volumes=pv,
+                    sumw_log_shifts=shifts, engine=engine, group=LOCAL,
+                    device=device)
         for (imm, icc, *_), lnz in zip(group, out):
             mce[imm, icc, :] = lnz
-    _stage_log()
 
 
 def dataset_evidence(rootdir: str, dataset: str, *, kmax: int = 2,
@@ -488,6 +506,8 @@ def dataset_evidence(rootdir: str, dataset: str, *, kmax: int = 2,
     columns carry the higher-k estimates (the reference emits only k=1).
     ``device`` is where the selection (and in ``device`` precision the
     refinement and reduction) runs; ``"cuda"`` raises without a card.
+    The stages run under a collector held for the dataset, which
+    ``_stage_log`` reads once the table is built.
     """
     from .evidence import MCEvidence, check_precision
     from .ops.knn import resolve_engine
@@ -496,82 +516,111 @@ def dataset_evidence(rootdir: str, dataset: str, *, kmax: int = 2,
     resolve_engine(engine)
     resolve_device(device)
 
-    path_list, names = avail_model_list(rootdir, dataset, nmax=nmodel)
-    if not path_list:
-        logger.warning("no chains found for dataset %s under %s", dataset,
-                       rootdir)
-        return None
+    with _dataset_stages(dataset):
+        path_list, names = avail_model_list(rootdir, dataset, nmax=nmodel)
+        if not path_list:
+            logger.warning("no chains found for dataset %s under %s",
+                           dataset, rootdir)
+            return None
 
-    if nchain == 0:
-        cols = ["AllChains"]
-        chain_exts = [""]
-    else:
-        cols = [f"chain{i}" for i in range(1, nchain + 1)]
-        chain_exts = [f"_{i}.txt" for i in range(1, nchain + 1)]
+        if nchain == 0:
+            cols = ["AllChains"]
+            chain_exts = [""]
+        else:
+            cols = [f"chain{i}" for i in range(1, nchain + 1)]
+            chain_exts = [f"_{i}.txt" for i in range(1, nchain + 1)]
 
-    mce = np.full((len(path_list), len(cols), kmax - 1), np.nan)
-    info: Dict[str, list] = {k: [] for k in INFO_COLS}
+        mce = np.full((len(path_list), len(cols), kmax - 1), np.nan)
+        info: Dict[str, list] = {k: [] for k in INFO_COLS}
 
-    if batch_cells:
-        _dataset_cells_batched(path_list, names, chain_exts, kmax=kmax,
-                               burnfrac=burnfrac, thinfrac=thinfrac,
-                               use_h0_prior=use_h0_prior, mce=mce, info=info,
-                               precision=precision, cross=cross,
-                               engine=engine, seed=seed,
-                               parse_workers=parse_workers, device=device)
+        if batch_cells:
+            _dataset_cells_batched(
+                path_list, names, chain_exts, kmax=kmax, burnfrac=burnfrac,
+                thinfrac=thinfrac, use_h0_prior=use_h0_prior, mce=mce,
+                info=info, precision=precision, cross=cross, engine=engine,
+                seed=seed, parse_workers=parse_workers, device=device)
+            if np.all(np.isnan(mce)):
+                return None
+            return _build_dataset_frame(mce, names, cols, nchain, info)
+
+        # Prefetch raw chain files on a worker thread while the device
+        # computes.
+        from .chains.reader import load_chains
+
+        def prefetch(fchain):
+            try:
+                return load_chains(fchain)
+            except Exception as e:      # missing chain: NaN cell downstream
+                return e
+
+        jobs = [(fname + ext) for fname in path_list for ext in chain_exts]
+        pool = ThreadPoolExecutor(max_workers=max(1, parse_workers))
+        futures = {j: pool.submit(prefetch, j) for j in jobs}
+
+        vol_norm = 1.0
+        for imm, (mm, fname) in enumerate(zip(names, path_list)):
+            with span("grid_prologue"):
+                pro = _model_prologue(mm, fname, info, use_h0_prior, futures,
+                                      chain_exts, vol_norm)
+            if pro is None:
+                continue
+            prior_volume, ndim, h0i, vol_norm = pro
+            isfunc = make_h0_gauss_lnp(h0i) if h0i is not None else None
+            nc_read, nc_use = "", ""
+            for icc, ext in enumerate(chain_exts):
+                fchain = fname + ext
+                try:
+                    # pop: keeping every parsed chain referenced until the
+                    # end of the dataset would hold multi-GB of float64
+                    # arrays alive
+                    with span("grid_parse_wait"):
+                        chains = futures.pop(fchain).result()
+                    if isinstance(chains, Exception):
+                        raise chains
+                    count("grid_cells")
+                    with span("grid_launch"):
+                        e, einfo = MCEvidence(
+                            chains, ndim=ndim, isfunc=isfunc,
+                            priorvolume=prior_volume, kmax=kmax,
+                            verbose=verbose, burnlen=burnfrac,
+                            thinlen=thinfrac, split=cross, seed=seed,
+                            engine=engine, precision=precision,
+                            device=device,
+                        ).evidence(info=True, pos_lnp=False)
+                    mce[imm, icc, :] = e
+                    nc_read += f"{einfo['Nsamples_read']},"
+                    nc_use += f"{einfo['Nsamples']},"
+                except Exception as exc:
+                    logger.warning("evidence failed for %s: %s", fchain, exc)
+            info["N_read"].append(nc_read)
+            info["N_used"].append(nc_use)
+        pool.shutdown(wait=False)
+
         if np.all(np.isnan(mce)):
             return None
         return _build_dataset_frame(mce, names, cols, nchain, info)
 
-    # Prefetch raw chain files on a worker thread while the device computes.
-    from .chains.reader import load_chains
 
-    def prefetch(fchain):
-        try:
-            return load_chains(fchain)
-        except Exception as e:          # missing chain: NaN cell downstream
-            return e
+@contextmanager
+def _dataset_stages(dataset):
+    """A collector for one dataset's stages; logs them when it closes."""
+    timings: Dict = {}
+    with collect(timings, []):
+        yield
+    _stage_log(dataset, timings)
 
-    jobs = [(fname + ext) for fname in path_list for ext in chain_exts]
-    pool = ThreadPoolExecutor(max_workers=max(1, parse_workers))
-    futures = {j: pool.submit(prefetch, j) for j in jobs}
 
-    vol_norm = 1.0
-    for imm, (mm, fname) in enumerate(zip(names, path_list)):
-        pro = _model_prologue(mm, fname, info, use_h0_prior, futures,
-                              chain_exts, vol_norm)
-        if pro is None:
-            continue
-        prior_volume, ndim, h0i, vol_norm = pro
-        isfunc = make_h0_gauss_lnp(h0i) if h0i is not None else None
-        nc_read, nc_use = "", ""
-        for icc, ext in enumerate(chain_exts):
-            fchain = fname + ext
-            try:
-                # pop: keeping every parsed chain referenced until the end of
-                # the dataset would hold multi-GB of float64 arrays alive
-                chains = futures.pop(fchain).result()
-                if isinstance(chains, Exception):
-                    raise chains
-                e, einfo = MCEvidence(
-                    chains, ndim=ndim, isfunc=isfunc,
-                    priorvolume=prior_volume, kmax=kmax, verbose=verbose,
-                    burnlen=burnfrac, thinlen=thinfrac, split=cross,
-                    seed=seed, engine=engine, precision=precision,
-                    device=device,
-                ).evidence(info=True, pos_lnp=False)
-                mce[imm, icc, :] = e
-                nc_read += f"{einfo['Nsamples_read']},"
-                nc_use += f"{einfo['Nsamples']},"
-            except Exception as exc:
-                logger.warning("evidence failed for %s: %s", fchain, exc)
-        info["N_read"].append(nc_read)
-        info["N_used"].append(nc_use)
-    pool.shutdown(wait=False)
-
-    if np.all(np.isnan(mce)):
-        return None
-    return _build_dataset_frame(mce, names, cols, nchain, info)
+def _stage_log(dataset, timings):
+    """Log a dataset's stage seconds (``STAGES``, summed by their spans)
+    and its counts, as one record whose ``args`` is that dict."""
+    stages = {f"{s}_s": timings.get(f"{s}_s", 0.0) for s in STAGES}
+    stages.update(dataset=dataset, cells=timings.get("grid_cells", 0),
+                  reruns=timings.get("grid_reruns", 0))
+    logger.info(
+        "dataset stages of %(dataset)s: parse-wait %(grid_parse_wait_s).2fs,"
+        " prologue %(grid_prologue_s).2fs, launch %(grid_launch_s).2fs, "
+        "fetch %(grid_fetch_s).2fs, re-run %(grid_rerun_s).2fs (%(reruns)d "
+        "of %(cells)d cells), frame %(grid_tables_s).2fs", stages)
 
 
 def _build_dataset_frame(mce, names, cols, nchain, info):
@@ -582,18 +631,20 @@ def _build_dataset_frame(mce, names, cols, nchain, info):
     k=1 only, so for kmax>2 the higher-k estimates go into extra
     ``<col>_k<k>`` columns appended before the info block (instead of being
     silently dropped)."""
-    import pandas as pd
-    df = pd.DataFrame(mce[:, :, 0], index=names, columns=cols)
-    df_mean = df.mean(axis=1)
-    if nchain > 0:
-        df["Mean_lnE_k1"] = df_mean
-        df["Err_lnE_k1"] = df.loc[:, cols].std(axis=1) / np.sqrt(float(nchain))
-    df["delta_lnE_k1"] = df_mean - df_mean.max()
-    for k in range(2, mce.shape[2] + 1):
-        for j, col in enumerate(cols):
-            df[f"{col}_k{k}"] = mce[:, j, k - 1]
-    for k in INFO_COLS:
-        df[k] = info[k]
+    with span("grid_tables"):
+        import pandas as pd
+        df = pd.DataFrame(mce[:, :, 0], index=names, columns=cols)
+        df_mean = df.mean(axis=1)
+        if nchain > 0:
+            df["Mean_lnE_k1"] = df_mean
+            df["Err_lnE_k1"] = (df.loc[:, cols].std(axis=1)
+                                / np.sqrt(float(nchain)))
+        df["delta_lnE_k1"] = df_mean - df_mean.max()
+        for k in range(2, mce.shape[2] + 1):
+            for j, col in enumerate(cols):
+                df[f"{col}_k{k}"] = mce[:, j, k - 1]
+        for k in INFO_COLS:
+            df[k] = info[k]
     return df
 
 
@@ -654,13 +705,15 @@ def run_grid(rootdir: str, outdir: str, *, basename: str = "mce",
         if df is None:
             continue
         all_df[dataset] = df["delta_lnE_k1"]
-        if verbose > 0:
-            print(_tabulate(df))
-        with open(os.path.join(out, f"{basename}_{dataset}.txt"), "w") as fh:
-            fh.write(f"\n************ {dataset} ************\n")
-            fh.write(_tabulate(df))
-            fh.write("\n")
-        df.to_csv(os.path.join(out_csv, f"{basename}_{dataset}.csv"))
+        with span("grid_tables"):
+            if verbose > 0:
+                print(_tabulate(df))
+            with open(os.path.join(out, f"{basename}_{dataset}.txt"),
+                      "w") as fh:
+                fh.write(f"\n************ {dataset} ************\n")
+                fh.write(_tabulate(df))
+                fh.write("\n")
+            df.to_csv(os.path.join(out_csv, f"{basename}_{dataset}.csv"))
     return all_df
 
 
@@ -951,9 +1004,10 @@ def _main(args, argv) -> int:
                     "once all shards finish. Missing: %s",
                     len(missing), ", ".join(missing))
                 return 3
-        aggregate(args.outdir, basename=args.name, nchain=args.nchain,
-                  rootdir=args.rootdir, datasets=datasets,
-                  all_df=all_df if args.num_shards == 1 else None)
+        with span("grid_tables"):
+            aggregate(args.outdir, basename=args.name, nchain=args.nchain,
+                      rootdir=args.rootdir, datasets=datasets,
+                      all_df=all_df if args.num_shards == 1 else None)
     return 0
 
 

@@ -5,14 +5,18 @@
 constructor's ingest and around each ``evidence()`` call) a span adds its
 ``perf_counter`` seconds to ``timings[name + "_s"]``, summed over the
 step's runs, and appends ``(name, parent, start, end)`` to ``spans``
-(``parent`` is the name of the span it ran in, or None).
+(``parent`` is the name of the span it ran in, or None).  A collector
+entered inside another also hands each record to the one around it, so
+the caller of a driver that holds its own collector (the grid driver holds
+one for each dataset) sees the driver's spans too.  ``count(name)`` adds to
+``timings[name]`` under the same collectors: counts keep their bare name.
 
 While a ``torch.profiler`` profile is on, a span is also a
 ``record_function("mce.<name>")``, a ``user_annotation`` on the profiler's
 clock beside the kernels and copies.  With no profile on, no
 ``record_function`` is entered (it costs ~10 us a span; the check costs
 well under one), and with no collector either, a span only makes that
-check: calls from outside ``MCEvidence`` record nothing.
+check: calls under no collector record nothing.
 
 The collector sits in a ``contextvars.ContextVar``, so the steps deep in
 ``ops/`` find it without new arguments, and a thread (the service's
@@ -34,23 +38,32 @@ _ACTIVE = contextvars.ContextVar("mce_span_collector", default=None)
 
 
 class _Collector:
-    __slots__ = ("timings", "spans", "open")
+    __slots__ = ("timings", "spans", "open", "outer")
 
-    def __init__(self, timings: dict, spans: list):
+    def __init__(self, timings: dict, spans: list, outer):
         self.timings = timings
         self.spans = spans
         self.open: list = []           # names of the spans entered, not left
+        self.outer = outer             # the collector this one runs inside
 
 
 @contextmanager
 def collect(timings: dict, spans: list):
     """Record the spans run inside this block into ``timings`` and
-    ``spans``."""
-    token = _ACTIVE.set(_Collector(timings, spans))
+    ``spans``, and into the collectors around the block."""
+    token = _ACTIVE.set(_Collector(timings, spans, _ACTIVE.get()))
     try:
         yield
     finally:
         _ACTIVE.reset(token)
+
+
+def count(name: str, n: int = 1) -> None:
+    """Add ``n`` to ``timings[name]`` of the active collectors."""
+    col = _ACTIVE.get()
+    while col is not None:
+        col.timings[name] = col.timings.get(name, 0) + n
+        col = col.outer
 
 
 class span:
@@ -68,7 +81,10 @@ class span:
             self._rf.__enter__()
         col = self._col = _ACTIVE.get()
         if col is not None:
-            self._parent = col.open[-1] if col.open else None
+            c = col
+            while c is not None and not c.open:
+                c = c.outer
+            self._parent = c.open[-1] if c is not None else None
             col.open.append(self.name)
             self._t0 = perf_counter()
         return self
@@ -77,11 +93,14 @@ class span:
         col = self._col
         if col is not None:
             t1 = perf_counter()
-            timings = col.timings
             col.open.pop()
             key = self.name + "_s"
-            timings[key] = timings.get(key, 0.0) + (t1 - self._t0)
-            col.spans.append((self.name, self._parent, self._t0, t1))
+            rec = (self.name, self._parent, self._t0, t1)
+            while col is not None:
+                timings = col.timings
+                timings[key] = timings.get(key, 0.0) + (t1 - self._t0)
+                col.spans.append(rec)
+                col = col.outer
         if self._rf is not None:
             self._rf.__exit__(*exc)
         return False
