@@ -65,7 +65,10 @@ def _parse_cache_path(path: str) -> Optional[str]:
 
 
 def parse_chain_file(path: str) -> np.ndarray:
-    """Parse one whitespace-delimited chain file to a float64 matrix."""
+    """Parse one whitespace-delimited chain file to a float64 matrix.
+
+    A parse from text counts ``parse_fields`` and ``parse_fields_fixed``
+    (``utils/spans.py``); a read from the parse cache counts nothing."""
     cpath = _parse_cache_path(path)
     if cpath and os.path.exists(cpath):
         try:
@@ -73,8 +76,9 @@ def parse_chain_file(path: str) -> np.ndarray:
         except Exception as e:          # truncated/corrupt cache: re-parse
             logger.warning("parse cache read failed for %s: %s", cpath, e)
     from ..native import chainload
-    arr = chainload.load_table(path)
-    if arr is None:
+    from ..utils.spans import count
+    got = chainload.parse_table(path)
+    if got is None:
         # pandas C engine is ~10x faster than np.loadtxt on big chains
         try:
             import pandas as pd
@@ -82,6 +86,13 @@ def parse_chain_file(path: str) -> np.ndarray:
                               dtype=np.float64).to_numpy()
         except Exception:
             arr = np.loadtxt(path)
+        nfixed = 0
+    else:
+        arr, nfixed = got
+    # the fields converted from text, and those of them the native
+    # parser's fixed-layout decoder took, under the caller's collector
+    count("parse_fields", arr.size)
+    count("parse_fields_fixed", nfixed)
     if cpath:
         try:
             import threading

@@ -2,8 +2,10 @@
 
 The Planck-grid workload parses tens of MB of whitespace-delimited text per
 model (the reference leans on ``np.loadtxt``, its slowest host path —
-MCEvidence.py:560-565).  ``libchainload.so`` (see ``chainload.cpp``) mmaps the
-file and parses floats in parallel-friendly single-pass C++.  If the library
+MCEvidence.py:560-565).  ``libchainload.so`` (see ``chainload.cpp``) maps the
+file once, takes the table's shape from a newline count and the first data
+line, and converts each number once, CosmoMC's ``%16.7E`` fields by a
+fixed-layout decoder and any other token by the general one.  If the library
 has not been built, ``load_table`` returns None and callers fall back to
 pandas/numpy.
 
@@ -18,6 +20,7 @@ import logging
 import os
 import subprocess
 import threading
+from typing import Optional, Tuple
 
 import numpy as np
 
@@ -34,12 +37,18 @@ _build_failed = False
 def _build() -> bool:
     if not os.path.exists(_SRC):
         return False
-    cmd = ["g++", "-O3", "-shared", "-fPIC", "-std=c++17", _SRC, "-o", _LIB]
+    # built under a name of its own, then renamed: processes that import
+    # this module at once never load another's half-written library
+    tmp = f"{_LIB}.{os.getpid()}-{threading.get_ident()}.tmp"
+    cmd = ["g++", "-O3", "-shared", "-fPIC", "-std=c++17", _SRC, "-o", tmp]
     try:
         subprocess.run(cmd, check=True, capture_output=True, timeout=120)
+        os.replace(tmp, _LIB)
         return True
     except Exception as e:  # compiler missing / failed: fall back silently
         logger.debug("native chainload build failed: %s", e)
+        if os.path.exists(tmp):
+            os.remove(tmp)
         return False
 
 
@@ -58,14 +67,22 @@ def _get_lib():
                 return None
         try:
             lib = ctypes.CDLL(_LIB)
-            lib.chainload_parse.restype = ctypes.c_longlong
-            lib.chainload_parse.argtypes = [
-                ctypes.c_char_p,                  # path
-                ctypes.POINTER(ctypes.c_double),  # out buffer (may be NULL)
-                ctypes.c_longlong,                # out capacity (elements)
-                ctypes.POINTER(ctypes.c_longlong),  # out nrows
+            lib.chainload_open.restype = ctypes.c_void_p
+            lib.chainload_open.argtypes = [
+                ctypes.c_char_p,                    # path
+                ctypes.POINTER(ctypes.c_longlong),  # out row bound
                 ctypes.POINTER(ctypes.c_longlong),  # out ncols
             ]
+            lib.chainload_fill.restype = ctypes.c_longlong
+            lib.chainload_fill.argtypes = [
+                ctypes.c_void_p,                    # handle
+                ctypes.POINTER(ctypes.c_double),    # out buffer
+                ctypes.c_longlong,                  # out capacity (elements)
+                ctypes.POINTER(ctypes.c_longlong),  # out nrows
+                ctypes.POINTER(ctypes.c_longlong),  # out fixed-layout fields
+            ]
+            lib.chainload_close.restype = None
+            lib.chainload_close.argtypes = [ctypes.c_void_p]
             _lib = lib
         except OSError as e:
             logger.debug("native chainload load failed: %s", e)
@@ -73,33 +90,34 @@ def _get_lib():
     return _lib
 
 
-def load_table(path: str):
-    """Parse a whitespace-delimited numeric table; None if native unavailable."""
+def parse_table(path: str) -> Optional[Tuple[np.ndarray, int]]:
+    """Parse a whitespace-delimited numeric table in one pass over the file:
+    (the table, how many of its fields the fixed-layout decoder took), or
+    None where the native parser is unavailable or rejects the file."""
     lib = _get_lib()
     if lib is None:
         return None
     nrows = ctypes.c_longlong(0)
     ncols = ctypes.c_longlong(0)
-    # pass 1: probe dimensions (no buffer)
-    rc = lib.chainload_parse(path.encode(), None, 0,
-                             ctypes.byref(nrows), ctypes.byref(ncols))
+    handle = lib.chainload_open(os.fsencode(path), ctypes.byref(nrows),
+                                ctypes.byref(ncols))
+    if not handle:
+        return None
+    nfixed = ctypes.c_longlong(0)
+    try:
+        # rows bounded by the newline count; trimmed to those written
+        out = np.empty((nrows.value, ncols.value), dtype=np.float64)
+        rc = lib.chainload_fill(
+            handle, out.ctypes.data_as(ctypes.POINTER(ctypes.c_double)),
+            out.size, ctypes.byref(nrows), ctypes.byref(nfixed))
+    finally:
+        lib.chainload_close(handle)
     if rc < 0:
         return None
-    probe_shape = (nrows.value, ncols.value)
-    out = np.empty(probe_shape, dtype=np.float64)
-    rc = lib.chainload_parse(
-        path.encode(),
-        out.ctypes.data_as(ctypes.POINTER(ctypes.c_double)),
-        out.size, ctypes.byref(nrows), ctypes.byref(ncols))
-    if rc < 0:
-        return None
-    # The file can change between the probe and fill passes; a different
-    # column count would make the row-major fill misaligned with `out`'s
-    # stride, so reject anything but an exact shape match (the caller then
-    # falls back to np.loadtxt on the current file contents).
-    if (nrows.value, ncols.value) != probe_shape:
-        logger.debug("native chainload: file %s changed between passes "
-                     "(%s -> %s); falling back", path, probe_shape,
-                     (nrows.value, ncols.value))
-        return None
-    return out
+    return out[:nrows.value], nfixed.value
+
+
+def load_table(path: str) -> Optional[np.ndarray]:
+    """Parse a whitespace-delimited numeric table; None if native unavailable."""
+    got = parse_table(path)
+    return None if got is None else got[0]

@@ -35,7 +35,9 @@ and fetches in one), ``grid_fetch`` (the fetch and the finalize),
 ``grid_rerun`` (the synchronous re-run of a thin-margin cell) and
 ``grid_tables`` (the frame; in ``run_grid`` and ``main`` also the txt, the
 csv and the aggregate, under the caller's collector), with the counts
-``grid_cells`` and ``grid_reruns``.  ``_stage_log`` logs them.
+``grid_cells`` and ``grid_reruns``, and ``parse_fields`` and
+``parse_fields_fixed`` (``chains/reader.py``), which the prefetch threads
+hand back with each parse.  ``_stage_log`` logs the stages.
 """
 
 from __future__ import annotations
@@ -256,14 +258,40 @@ def _model_prologue(mm, fname, info, use_h0_prior, futures, chain_exts,
     return prior_volume, par.ndim, h0i, vol_norm
 
 
-def _try_ingest(fchain, burnfrac, thinfrac, cross, seed):
-    """Worker-thread ingest: returns the ChainPair or the exception."""
-    from .chains.reader import ingest
+PARSE_COUNTS = ("parse_fields", "parse_fields_fixed")
+
+
+def _on_worker(fn):
+    """Run ``fn()`` on a prefetch thread: (its result or its exception, the
+    parse counts it made).  The dataset's collector belongs to the main
+    thread, so the worker counts under a collector of its own and the main
+    thread adds the counts once it has the result (``_take``)."""
+    counts: Dict = {}
     try:
-        return ingest(fchain, burnlen=burnfrac, thinlen=thinfrac,
-                      split=cross, rng=np.random.default_rng(seed))
+        with collect(counts, []):
+            out = fn()
     except Exception as exc:
-        return exc
+        out = exc
+    return out, {k: counts[k] for k in PARSE_COUNTS if k in counts}
+
+
+def _take(future):
+    """A prefetch future's result, its parse counts added to the
+    collector."""
+    with span("grid_parse_wait"):
+        out, counts = future.result()
+    for name, n in counts.items():
+        count(name, n)
+    return out
+
+
+def _try_ingest(fchain, burnfrac, thinfrac, cross, seed):
+    """Worker-thread ingest: the ChainPair or the exception, with the
+    parse counts (``_on_worker``)."""
+    from .chains.reader import ingest
+    return _on_worker(lambda: ingest(
+        fchain, burnlen=burnfrac, thinlen=thinfrac, split=cross,
+        rng=np.random.default_rng(seed)))
 
 
 def _dataset_cells_batched(path_list, names, chain_exts, *, kmax,
@@ -312,8 +340,7 @@ def _dataset_cells_batched(path_list, names, chain_exts, *, kmax,
         nc_read, nc_use = "", ""
         for icc, ext in enumerate(chain_exts):
             try:
-                with span("grid_parse_wait"):
-                    pair = parse_futures.pop(fname + ext).result()
+                pair = _take(parse_futures.pop(fname + ext))
                 if isinstance(pair, Exception):
                     raise pair
                 p = pair.s1
@@ -548,10 +575,8 @@ def dataset_evidence(rootdir: str, dataset: str, *, kmax: int = 2,
         from .chains.reader import load_chains
 
         def prefetch(fchain):
-            try:
-                return load_chains(fchain)
-            except Exception as e:      # missing chain: NaN cell downstream
-                return e
+            # an exception (a missing chain) is a NaN cell downstream
+            return _on_worker(lambda: load_chains(fchain))
 
         jobs = [(fname + ext) for fname in path_list for ext in chain_exts]
         pool = ThreadPoolExecutor(max_workers=max(1, parse_workers))
@@ -573,8 +598,7 @@ def dataset_evidence(rootdir: str, dataset: str, *, kmax: int = 2,
                     # pop: keeping every parsed chain referenced until the
                     # end of the dataset would hold multi-GB of float64
                     # arrays alive
-                    with span("grid_parse_wait"):
-                        chains = futures.pop(fchain).result()
+                    chains = _take(futures.pop(fchain))
                     if isinstance(chains, Exception):
                         raise chains
                     count("grid_cells")
