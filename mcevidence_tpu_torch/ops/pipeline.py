@@ -16,11 +16,12 @@ pools have no counterpart here.  It agrees with the refine path to ~1e-13 in
 ln Z.  Three fallbacks route to the host-refine path (host whitening; the
 selection and the f64 refine still run on the card), each logged: ndim >
 ``DEVICE_NDIM_MAX``, a device-memory plan over the budget, and a
-non-finite sum; thin candidate margins retry once
-with ``4*pad+8`` candidates.  Spans (``utils/spans.py``): ``device_prep``
-(the host f64 prep), ``upload`` (the copies to the card), ``device_run``
-(the launches and the wait for the scalars) and ``reselect`` (the
-thin-margin re-run, around its own three).
+non-finite sum; thin candidate margins retry once with ``4*pad+8``
+candidates.  A pass is ``device_refine_launch`` and, after the fetch,
+``device_refine_finish`` (the grid launches all cells first).  Spans
+(``utils/spans.py``): ``device_prep`` (the host f64 prep), ``upload`` (the
+copies to the card), ``device_run`` (the launches and the wait for the
+scalars) and ``reselect`` (the thin-margin re-run, around its own three).
 
 One ``fast`` estimate (``fast_auto_evidence``, ``fused_auto_evidence``)
 runs all in f32: host f64 centring -> upload -> masked-moment whitening,
@@ -35,6 +36,7 @@ from __future__ import annotations
 import logging
 import math
 import os
+from contextlib import ExitStack, nullcontext
 from typing import Optional
 
 import numpy as np
@@ -302,35 +304,66 @@ def _device_refine_prepare(samples, lnlike, weights, kmax, pad_candidates,
             scal=torch.as_tensor(scal, dtype=torch.float64, device=dev))
     host = dict(n=n, ndim=ndim, lnl_max=lnl_max, cross=cross, log_j=log_j,
                 sum_w=float(np.sum(w)), inv_s2=inv_s2, n_ref=n_ref,
-                k_sel=k_sel, kmax_eff=min(kmax, k_sel))
+                k_sel=k_sel, kmax=kmax, kmax_eff=min(kmax, k_sel))
     return tensors, host
 
 
-def _device_refine_finalize(flat, host, kmax, prior_volume,
-                            sum_adjusted_weights, warn_thin=True):
-    """f64 host bookkeeping around the fetched device result
-    [dotp (kmax_eff), thin_count].  Columns beyond kmax_eff (tiny reference
-    partitions) come back NaN; a column whose sum is 0 (exact duplicates at
-    distance 0 in every row) comes back -inf."""
+def device_refine_launch(samples, lnlike, weights=None, *, samples2=None,
+                         kmax: int = 2, pad_candidates: int = 4,
+                         engine: str = "auto", device="cuda",
+                         wait: bool = False):
+    """Prep, upload and ``fused_refine_dotp`` of one chain (or cross pair)
+    at k_sel = kmax + pad.  Returns (flat, tensors, plan): [dotp...,
+    thin_count] on the device, not waited for (with ``wait`` fetched, the
+    launch and the wait under ``device_run``), the uploads, the constants."""
+    t, plan = _device_refine_prepare(samples, lnlike, weights, kmax,
+                                     pad_candidates, samples2=samples2,
+                                     device=device)
+    with span("device_run") if wait else nullcontext():
+        flat = fused_refine_dotp(
+            t["q64"], t["r64"], t["scal"], plan["n_ref"], plan["ndim"],
+            plan["inv_s2"], k_sel=plan["k_sel"], kmax=plan["kmax_eff"],
+            engine=engine, self_mode=samples2 is None)
+        if wait:
+            flat = flat.cpu().numpy()
+    return flat, t, plan
+
+
+THIN, NONFINITE = "thin", "non-finite"
+
+
+def device_refine_finish(flat, plan, *, prior_volume: float = 1.0,
+                         sum_adjusted_weights: Optional[float] = None,
+                         last: bool = False):
+    """The ln Z row (k = 1..kmax-1) of a fetched pass ``flat`` under its
+    ``plan``, or ``NONFINITE`` (a sum left f64 range), or ``THIN`` (thin
+    candidate margins) unless ``last``: a last thin pass warns where
+    k_sel < n_ref.  Columns beyond kmax_eff (tiny reference partitions)
+    come back NaN; a column whose sum is 0 (exact duplicates at distance 0
+    in every row) comes back -inf."""
     flat = np.asarray(flat, np.float64)
+    if not np.all(np.isfinite(flat[:-1])):
+        return NONFINITE
     thin_count = flat[-1]
-    ke = host["kmax_eff"]
-    n, ndim = host["n"], host["ndim"]
-    sumw = (host["sum_w"] if sum_adjusted_weights is None
+    if thin_count > 0 and not last:
+        return THIN
+    kmax, ke = plan["kmax"], plan["kmax_eff"]
+    n, ndim = plan["n"], plan["ndim"]
+    sumw = (plan["sum_w"] if sum_adjusted_weights is None
             else float(sum_adjusted_weights))
     k_idx = np.arange(ke)
     # auto: column 0 is the self match; cross: k0=0 semantics — genuine NNs
     # with k_nn = k+1 (reference MCEvidence.py:1120-1123); the caller's
     # slice [1:] drops column 0 either way (quirk Q2)
-    k_nn = k_idx + 1 if host["cross"] else k_idx
+    k_nn = k_idx + 1 if plan["cross"] else k_idx
     with np.errstate(divide="ignore"):
-        log_dotp = (np.log(flat[:ke]) - 0.5 * ndim * math.log(host["inv_s2"])
+        log_dotp = (np.log(flat[:ke]) - 0.5 * ndim * math.log(plan["inv_s2"])
                     + log_ball_volume_const(ndim))
         log_amax = log_dotp - np.log(n * k_nn + 1.0)
     mle = np.full(kmax, np.nan)
-    mle[:ke] = (math.log(sumw) + log_amax + host["log_j"] + host["lnl_max"]
+    mle[:ke] = (math.log(sumw) + log_amax + plan["log_j"] + plan["lnl_max"]
                 - math.log(prior_volume))
-    if warn_thin and thin_count > 0:
+    if thin_count > 0 and plan["k_sel"] < plan["n_ref"]:
         logger.warning(
             "device-refine: %d rows had thin candidate margins (near-tied "
             "neighbour distances); increase pad_candidates or use "
@@ -377,69 +410,62 @@ def device_refine_evidence(samples: np.ndarray, lnlike: np.ndarray,
                            kmax: int = 2, prior_volume: float = 1.0,
                            sum_adjusted_weights: Optional[float] = None,
                            pad_candidates: int = 4,
-                           engine: str = "auto", device="cuda",
-                           _retried: bool = False) -> np.ndarray:
+                           engine: str = "auto", device="cuda") -> np.ndarray:
     """Parity-grade evidence with scalar-only device->host traffic.
 
     Host f64 whitening -> f64 coordinate upload -> selection, f64
     refinement and reduction on ``device`` -> (kmax+1,) fetch -> f64 host
     bookkeeping.  ~1e-13 lnZ of the refine path; returns k = 1..kmax-1
     like ``evidence_fn``.  Cross mode when ``samples2`` is given (NNs of
-    ``samples`` searched in ``samples2``).
-    """
+    ``samples`` searched in ``samples2``).  A thin pass runs once more
+    with 4*pad+8 candidates, under the ``reselect`` span."""
     kmax = max(2, kmax)
     samples = np.asarray(samples, np.float64)
+    n, ndim = samples.shape
+    n_ref = (samples if samples2 is None else samples2).shape[0]
     fallback = dict(samples2=samples2, kmax=kmax, prior_volume=prior_volume,
                     sum_adjusted_weights=sum_adjusted_weights, engine=engine,
                     device=device)
-    if samples.shape[1] > DEVICE_NDIM_MAX:
+    if ndim > DEVICE_NDIM_MAX:
         logger.info("device-refine: ndim %d > %d (device layout limit); "
                     "falling back to the host refine path",
-                    samples.shape[1], DEVICE_NDIM_MAX)
+                    ndim, DEVICE_NDIM_MAX)
         return host_refine_evidence(samples, lnlike, weights, **fallback)
     dev = resolve_device(device)
-    n_ref = (samples2 if samples2 is not None else samples).shape[0]
-    k_sel = min(kmax + pad_candidates, n_ref)
-    est = estimate_device_refine_bytes(samples.shape[0], n_ref,
-                                       samples.shape[1], k_sel,
-                                       cross=samples2 is not None)
-    budget = device_budget_bytes(dev)
-    if budget is not None and est > budget:
-        logger.warning(
-            "device-refine: planned HBM %.3f GiB (N=%d, k_sel=%d) exceeds "
-            "the %.3f GiB budget; falling back to the host refine path "
-            "(set MCE_DEVICE_HBM_BUDGET_GB to change the budget)",
-            est / 2 ** 30, samples.shape[0], k_sel, budget / 2 ** 30)
-        return host_refine_evidence(samples, lnlike, weights, **fallback)
-    t, host = _device_refine_prepare(samples, lnlike, weights, kmax,
-                                     pad_candidates, samples2=samples2,
-                                     device=dev)
-    with span("device_run"):
-        flat = fused_refine_dotp(
-            t["q64"], t["r64"], t["scal"], n_ref, host["ndim"],
-            host["inv_s2"], k_sel=host["k_sel"], kmax=host["kmax_eff"],
-            engine=engine, self_mode=samples2 is None).cpu().numpy()
-    if not np.all(np.isfinite(flat[:-1])):
-        # (d2*inv_s2)^(ndim/2)*scal left f64 range (far outlier rows): the
-        # log-space host path has unlimited range
-        logger.warning("device-refine: non-finite sum; falling back to the "
-                       "host refine path")
-        return host_refine_evidence(samples, lnlike, weights, **fallback)
-    # thin-margin guard: moot when every reference row is already a
-    # candidate (k_sel == n_ref => the selection is trivially sufficient)
-    if flat[-1] > 0 and host["k_sel"] < n_ref:
-        retry_pad = 4 * pad_candidates + 8
-        if not _retried and min(kmax + retry_pad, n_ref) > host["k_sel"]:
+    with ExitStack() as retry:
+        for pad in (pad_candidates, 4 * pad_candidates + 8):
+            k_sel = min(kmax + pad, n_ref)
+            est = estimate_device_refine_bytes(n, n_ref, ndim, k_sel,
+                                               cross=samples2 is not None)
+            budget = device_budget_bytes(dev)
+            if budget is not None and est > budget:
+                logger.warning(
+                    "device-refine: planned HBM %.3f GiB (N=%d, k_sel=%d) "
+                    "exceeds the %.3f GiB budget; falling back to the host "
+                    "refine path (set MCE_DEVICE_HBM_BUDGET_GB to change the "
+                    "budget)", est / 2 ** 30, n, k_sel, budget / 2 ** 30)
+                break
+            flat, _, plan = device_refine_launch(
+                samples, lnlike, weights, samples2=samples2, kmax=kmax,
+                pad_candidates=pad, engine=engine, device=dev, wait=True)
+            # the retry, or every reference row already a candidate
+            row = device_refine_finish(
+                flat, plan, prior_volume=prior_volume,
+                sum_adjusted_weights=sum_adjusted_weights,
+                last=pad != pad_candidates or k_sel >= n_ref)
+            if row is NONFINITE:
+                # (d2*inv_s2)^(ndim/2)*scal left f64 range (far outlier
+                # rows): the log-space host path has unlimited range
+                logger.warning("device-refine: non-finite sum; falling back "
+                               "to the host refine path")
+                break
+            if row is not THIN:
+                return row
             logger.info("device-refine: thin margins on %d rows; re-running "
-                        "with %d extra candidates", int(flat[-1]), retry_pad)
-            with span("reselect"):
-                return device_refine_evidence(
-                    samples, lnlike, weights, pad_candidates=retry_pad,
-                    _retried=True, **fallback)
-        return _device_refine_finalize(flat, host, kmax, prior_volume,
-                                       sum_adjusted_weights, warn_thin=True)
-    return _device_refine_finalize(flat, host, kmax, prior_volume,
-                                   sum_adjusted_weights, warn_thin=False)
+                        "with %d extra candidates", int(flat[-1]),
+                        4 * pad + 8)
+            retry.enter_context(span("reselect"))
+        return host_refine_evidence(samples, lnlike, weights, **fallback)
 
 
 def device_refine_auto_evidence(samples, lnlike, weights=None, **kw):

@@ -61,9 +61,10 @@ import torch.distributed as dist
 from ..ops.estimator import (log_ball_volume_const, log_evidence_from_knn,
                              log_evidence_from_knn_np)
 from ..ops.knn import center_f64, guarded_refine_knn_f64, selector
-from ..ops.pipeline import (DEVICE_NDIM_MAX, _device_refine_finalize,
-                            _device_refine_prepare, fused_refine_dotp,
-                            fused_refine_dotp_batch, host_refine_evidence)
+from ..ops.pipeline import (DEVICE_NDIM_MAX, NONFINITE, THIN,
+                            _device_refine_prepare, device_refine_finish,
+                            fused_refine_dotp, fused_refine_dotp_batch,
+                            host_refine_evidence)
 from ..ops.whiten import (_whiten_from_cov, apply_whiten, whiten_masked,
                           whiten_stats)
 from ..utils.device import resolve_device
@@ -728,33 +729,30 @@ def sharded_device_refine_evidence(samples: np.ndarray, lnlike: np.ndarray,
                                     self_mode=samples2 is None, device=dev)
     parts = np.asarray(fn(t["q64"], t["r64"], t["scal"], host["n_ref"],
                           host["ndim"], host["inv_s2"]), np.float64)
-    ke = host["kmax_eff"]
-    vals = parts[:, :ke].sum(axis=0)
-    thin = parts[:, -1].sum()
-    n_ref = host["n_ref"]
-    if not np.all(np.isfinite(vals)):
+    flat = np.concatenate([parts[:, :host["kmax_eff"]].sum(axis=0),
+                           [parts[:, -1].sum()]])
+    retry_pad = 4 * pad_candidates + 8
+    row = device_refine_finish(
+        flat, host, prior_volume=prior_volume,
+        sum_adjusted_weights=sum_adjusted_weights,
+        last=(pad_candidates >= 32
+              or min(kmax + retry_pad, host["n_ref"]) <= host["k_sel"]))
+    if row is NONFINITE:
         # (d2 inv_s2)^(ndim/2) scal left f64 range (far outlier rows): the
         # refine path's log-space estimator has unlimited range
         logger.warning("sharded device-refine: non-finite sum; falling "
                        "back to the sharded refine path")
         return refine()
-    if thin > 0 and host["k_sel"] < n_ref:
-        retry_pad = 4 * pad_candidates + 8
-        if (pad_candidates < 32
-                and min(kmax + retry_pad, n_ref) > host["k_sel"]):
-            logger.info("sharded device-refine: thin margins on %d rows; "
-                        "re-running with %d extra candidates", int(thin),
-                        retry_pad)
-            return sharded_device_refine_evidence(
-                samples, lnlike, weights, samples2=samples2, kmax=kmax,
-                prior_volume=prior_volume,
-                sum_adjusted_weights=sum_adjusted_weights,
-                pad_candidates=retry_pad, group=ring, engine=engine,
-                device=dev)
-    flat = np.concatenate([vals, [thin]])
-    return _device_refine_finalize(flat, host, kmax, prior_volume,
-                                   sum_adjusted_weights,
-                                   warn_thin=host["k_sel"] < n_ref)
+    if row is THIN:
+        logger.info("sharded device-refine: thin margins on %d rows; "
+                    "re-running with %d extra candidates", int(flat[-1]),
+                    retry_pad)
+        return sharded_device_refine_evidence(
+            samples, lnlike, weights, samples2=samples2, kmax=kmax,
+            prior_volume=prior_volume,
+            sum_adjusted_weights=sum_adjusted_weights,
+            pad_candidates=retry_pad, group=ring, engine=engine, device=dev)
+    return row
 
 
 # ---------------------------------------------------------------------------
@@ -1098,7 +1096,8 @@ def sharded_grid_device_refine_evidence(chains, *, kmax: int = 2,
         hosts.append(dict(n=n, ndim=d, lnl_max=lnl_max, cross=cross,
                           log_j=stats.log_jacobian, sum_w=float(np.sum(w)),
                           inv_s2=n_refs[i] ** (2.0 / d) / d,
-                          n_ref=n_refs[i], k_sel=k_sel, kmax_eff=kmax))
+                          n_ref=n_refs[i], k_sel=k_sel, kmax=kmax,
+                          kmax_eff=kmax))
     q64 = torch.as_tensor(_stacked(queries, n_rows, width, np.float64),
                           device=dev)
     r64 = (torch.as_tensor(_stacked(references, max(n_refs), width,
@@ -1159,9 +1158,9 @@ def sharded_grid_device_refine_evidence(chains, *, kmax: int = 2,
                     sum_adjusted_weights=sw_i, engine=engine, device=dev)
                 continue
             flat = np.concatenate([parts[i, :-1], [0.0]])
-            out[i] = _device_refine_finalize(flat, hosts[i], kmax,
-                                             float(prior_volumes[i]), sw_i,
-                                             warn_thin=False)
+            out[i] = device_refine_finish(
+                flat, hosts[i], prior_volume=float(prior_volumes[i]),
+                sum_adjusted_weights=sw_i, last=True)
         return out
 
     if defer:

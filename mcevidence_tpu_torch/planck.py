@@ -48,6 +48,7 @@ import os
 import pickle
 import sys
 from argparse import ArgumentParser
+from collections import namedtuple
 from concurrent.futures import ThreadPoolExecutor
 from contextlib import contextmanager
 from typing import Dict, List, Optional, Sequence
@@ -204,50 +205,41 @@ def _tabulate(df) -> str:
         return df.to_string(float_format=lambda x: f"{x:.2f}")
 
 
-def _try_params_info(fname, info):
-    """Per-model metadata with grid-grade degradation: a corrupt or missing
-    ``.ranges``/``log.param`` file NaNs THIS model's row (like an unavailable
-    chain) instead of aborting the whole dataset/shard.  Extends the
-    reference's one graceful-degradation feature — unavailable cells become
-    NaN, planck_mcevidence.py:355-361 — to metadata failures, which the
-    reference would crash on."""
-    try:
-        return params_info(fname, cosmo=True)
-    except Exception as exc:
-        logger.warning("*** params_info failed for %s: %s", fname, exc)
-        info["N_read"].append("")
-        info["N_used"].append("")
-        info["PriorVol"].append(0)
-        info["ndim"].append(0)
-        return None
-
-
 def _model_prologue(mm, fname, info, use_h0_prior, futures, chain_exts,
                     vol_norm):
-    """Shared per-model prologue of the batched and per-cell dataset loops:
+    """Per-model prologue of the dataset walk (``_dataset_walk``):
     availability check, metadata with NaN degradation, base-volume
     normalization, stale-prefetch cancel, H0-column lookup.
 
+    A corrupt or missing ``.ranges``/``log.param`` NaNs THIS model's row
+    instead of aborting the dataset/shard: the reference's one graceful
+    degradation (unavailable cells become NaN, planck_mcevidence.py:
+    355-361) extended to metadata failures, on which it would crash.
+
     Returns (prior_volume, ndim, h0i, vol_norm), or None when this model is
     skipped (its info rows are already appended)."""
+    par = None
     if not _glob.glob(fname + "*.txt"):
         logger.warning("*** not available: %s", fname)
+    else:
+        try:
+            par = params_info(fname, cosmo=True)
+        except Exception as exc:
+            logger.warning("*** params_info failed for %s: %s", fname, exc)
+            if mm == "base":
+                logger.warning(
+                    "base model metadata failed: PriorVol for the other "
+                    "models is NOT normalized by the base volume "
+                    "(reference convention, planck_mcevidence.py:329-331) "
+                    "— absolute lnE values shift by ln(V_base)")
+            for ext in chain_exts:     # don't parse/hold chains we'll skip
+                fut = futures.pop(fname + ext, None)
+                if fut is not None:
+                    fut.cancel()
+    if par is None:
         for key, val in (("N_read", ""), ("N_used", ""),
                          ("PriorVol", 0), ("ndim", 0)):
             info[key].append(val)
-        return None
-    par = _try_params_info(fname, info)
-    if par is None:
-        if mm == "base":
-            logger.warning(
-                "base model metadata failed: PriorVol for the other "
-                "models is NOT normalized by the base volume "
-                "(reference convention, planck_mcevidence.py:329-331) "
-                "— absolute lnE values shift by ln(V_base)")
-        for ext in chain_exts:     # don't parse/hold chains we'll skip
-            fut = futures.pop(fname + ext, None)
-            if fut is not None:
-                fut.cancel()
         return None
     if mm == "base":
         vol_norm = par.volume
@@ -261,23 +253,21 @@ def _model_prologue(mm, fname, info, use_h0_prior, futures, chain_exts,
 PARSE_COUNTS = ("parse_fields", "parse_fields_fixed")
 
 
-def _on_worker(fn):
-    """Run ``fn()`` on a prefetch thread: (its result or its exception, the
+def _on_worker(load, path):
+    """``load(path)`` on a prefetch thread: (its result or exception, the
     parse counts it made).  The dataset's collector belongs to the main
-    thread, so the worker counts under a collector of its own and the main
-    thread adds the counts once it has the result (``_take``)."""
+    thread, so the worker counts under its own and ``_take`` adds them."""
     counts: Dict = {}
     try:
         with collect(counts, []):
-            out = fn()
+            out = load(path)
     except Exception as exc:
         out = exc
     return out, {k: counts[k] for k in PARSE_COUNTS if k in counts}
 
 
 def _take(future):
-    """A prefetch future's result, its parse counts added to the
-    collector."""
+    """A prefetch future's result; its parse counts go to the collector."""
     with span("grid_parse_wait"):
         out, counts = future.result()
     for name, n in counts.items():
@@ -285,13 +275,38 @@ def _take(future):
     return out
 
 
-def _try_ingest(fchain, burnfrac, thinfrac, cross, seed):
-    """Worker-thread ingest: the ChainPair or the exception, with the
-    parse counts (``_on_worker``)."""
-    from .chains.reader import ingest
-    return _on_worker(lambda: ingest(
-        fchain, burnlen=burnfrac, thinlen=thinfrac, split=cross,
-        rng=np.random.default_rng(seed)))
+def _dataset_walk(path_list, names, chain_exts, load, *, info,
+                  use_h0_prior, parse_workers):
+    """One dataset's models in order, each chain file loaded ahead by
+    ``load(path)`` on prefetch threads.  Yields (imm, (prior_volume, ndim,
+    h0i), chains) for each model ``_model_prologue`` keeps; the caller
+    takes every (icc, path, loaded object or exception) of ``chains``
+    before the next model, and appends the model's N_read and N_used."""
+    pool = ThreadPoolExecutor(max_workers=max(1, parse_workers))
+    futures = {fname + ext: pool.submit(_on_worker, load, fname + ext)
+               for fname in path_list if _glob.glob(fname + "*.txt")
+               for ext in chain_exts}
+    try:
+        vol_norm = 1.0
+        for imm, (mm, fname) in enumerate(zip(names, path_list)):
+            with span("grid_prologue"):
+                pro = _model_prologue(mm, fname, info, use_h0_prior,
+                                      futures, chain_exts, vol_norm)
+            if pro is None:
+                continue
+            vol_norm = pro[3]
+            # pop: keeping every parsed chain referenced until the end of
+            # the dataset would hold multi-GB of float64 arrays alive
+            yield imm, pro[:3], (
+                (icc, fname + ext, _take(futures.pop(fname + ext)))
+                for icc, ext in enumerate(chain_exts))
+    finally:
+        pool.shutdown(wait=False)
+
+
+# a model x chain cell of the batched grid (sumw_adj: H0-reweighted SumW)
+_Cell = namedtuple("_Cell", "imm icc ndim samples lnl weights samples2 "
+                            "prior_volume sumw_adj")
 
 
 def _dataset_cells_batched(path_list, names, chain_exts, *, kmax,
@@ -312,58 +327,41 @@ def _dataset_cells_batched(path_list, names, chain_exts, *, kmax,
     cross-evidence runs on the refine path.  ``cross=True`` splits each
     chain and runs cross-evidence.  Needs numpy and torch, not pandas.
     """
-    # LOCAL: under --distributed each process runs its own datasets'
-    # programs on its own card, as JAX's default mesh takes the process's
-    # local devices
-    from .parallel.ring import (LOCAL, sharded_grid_auto_evidence,
-                                sharded_grid_evidence_refine)
+    from .chains.reader import ingest
 
-    # prefetch file parses on worker threads (the native parser releases the
-    # GIL), overlapping the host-side text parsing with everything else
-    pool = ThreadPoolExecutor(max_workers=max(1, parse_workers))
-    parse_futures = {
-        fname + ext: pool.submit(
-            lambda f: _try_ingest(f, burnfrac, thinfrac, cross, seed),
-            fname + ext)
-        for fname in path_list for ext in chain_exts
-        if _glob.glob(fname + "*.txt")}
-
-    vol_norm = 1.0
-    cells = []   # (imm, icc, ndim, s1, lnl, w, s2, prior_volume, sumw_adj)
-    for imm, (mm, fname) in enumerate(zip(names, path_list)):
-        with span("grid_prologue"):
-            pro = _model_prologue(mm, fname, info, use_h0_prior,
-                                  parse_futures, chain_exts, vol_norm)
-        if pro is None:
-            continue
-        prior_volume, ndim_m, h0i, vol_norm = pro
+    def load(path):
+        # a fresh generator of ``seed`` for each file
+        return ingest(path, burnlen=burnfrac, thinlen=thinfrac, split=cross,
+                      rng=np.random.default_rng(seed))
+    cells = []
+    for imm, (prior_volume, ndim, h0i), chains in _dataset_walk(
+            path_list, names, chain_exts, load, info=info,
+            use_h0_prior=use_h0_prior, parse_workers=parse_workers):
         nc_read, nc_use = "", ""
-        for icc, ext in enumerate(chain_exts):
+        for icc, path, pair in chains:
             try:
-                pair = _take(parse_futures.pop(fname + ext))
                 if isinstance(pair, Exception):
                     raise pair
                 p = pair.s1
-                s2 = pair.s2.samples[:, :ndim_m] if cross else None
+                s2 = pair.s2.samples[:, :ndim] if cross else None
                 sumw_adj = None
                 if h0i is not None:
                     # quirk Q7: importance reweighting enters only SumW
                     with span("grid_prologue"):
                         neg = make_h0_gauss_lnp(h0i)(p.samples)
                         sumw_adj = float(np.sum(p.weights * np.exp(-neg)))
-                cells.append((imm, icc, ndim_m,
-                              p.samples[:, :ndim_m], p.lnp(), p.weights,
-                              s2, prior_volume, sumw_adj))
+                cells.append(_Cell(imm, icc, ndim, p.samples[:, :ndim],
+                                   p.lnp(), p.weights, s2, prior_volume,
+                                   sumw_adj))
                 # same strings the per-cell mode takes from the info dict
                 # (post-burn/thin s1 count; N_used lists every partition)
                 nc_read += f"{p.nsamples},"
                 parts = [p.nsamples] + ([pair.s2.nsamples] if cross else [])
                 nc_use += ", ".join(str(x) for x in parts) + ","
             except Exception as exc:
-                logger.warning("ingest failed for %s: %s", fname + ext, exc)
+                logger.warning("ingest failed for %s: %s", path, exc)
         info["N_read"].append(nc_read)
         info["N_used"].append(nc_use)
-    pool.shutdown(wait=False)
     count("grid_cells", len(cells))
 
     if cross and precision == "fast":
@@ -373,145 +371,144 @@ def _dataset_cells_batched(path_list, names, chain_exts, *, kmax,
     # chains wider than the device path takes (rare: --allparams on a
     # many-nuisance model) take the host refine path per cell
     from .ops.pipeline import DEVICE_NDIM_MAX
-    wide = [c for c in cells if c[2] > DEVICE_NDIM_MAX]
+    wide = [c for c in cells if c.ndim > DEVICE_NDIM_MAX]
     if wide:
         from .evidence import evidence_fn
         logger.info("%d cell(s) with ndim > %d take the host refine path",
                     len(wide), DEVICE_NDIM_MAX)
-        cells = [c for c in cells if c[2] <= DEVICE_NDIM_MAX]
-        for (imm, icc, _nd, s1, lnl1, w1, s2, pv, sumw_adj) in wide:
+        cells = [c for c in cells if c.ndim <= DEVICE_NDIM_MAX]
+        for c in wide:
             with span("grid_launch"):
-                mce[imm, icc, :] = evidence_fn(
-                    s1, lnl1, weights=w1, samples2=s2, kmax=kmax,
-                    prior_volume=pv, sum_adjusted_weights=sumw_adj,
-                    precision="refine", engine=engine, device=device)
+                mce[c.imm, c.icc, :] = evidence_fn(
+                    c.samples, c.lnl, weights=c.weights, samples2=c.samples2,
+                    kmax=kmax, prior_volume=c.prior_volume,
+                    sum_adjusted_weights=c.sumw_adj, precision="refine",
+                    engine=engine, device=device)
 
+    kw = dict(kmax=kmax, cross=cross, engine=engine, device=device)
     if precision == "device":
-        # every cell's selection + f64 refinement + reduction is LAUNCHED
-        # before any result is fetched; only (kmax+1,) scalars per cell
-        # come back
-        from .ops.pipeline import (_device_refine_finalize,
-                                   _device_refine_prepare,
-                                   device_refine_evidence,
-                                   fused_refine_dotp)
-        # Chunk quantum: how many same-bucket cells share one batched
-        # selection launch.  Per-chain mode (N times the cells at 1/N the
-        # rows) chunks by default; AllChains cells go one by one.  Override
-        # with MCE_GRID_QUANTUM (1 = per-cell launches).
-        q_env = os.environ.get("MCE_GRID_QUANTUM")
-        quantum = (int(q_env) if q_env
-                   else (4 if len(chain_exts) > 1 else 1))
-        if quantum > 1 and len(cells) > 1:
-            from .ops.knn import bucket_size_pow2
-            from .parallel.ring import (_dpad_class,
-                                        sharded_grid_device_refine_evidence)
-            groups: Dict[tuple, list] = {}
-            small = []
-            for cell in cells:
-                n_ref = len(cell[6]) if cross else len(cell[4])
-                if n_ref <= kmax:       # too short for the batched program
-                    small.append(cell)
-                    continue
-                key = (bucket_size_pow2(len(cell[4])), _dpad_class(cell[2]),
-                       bucket_size_pow2(len(cell[6])) if cross else 0)
-                groups.setdefault(key, []).append(cell)
-            pend_b = []     # launch every chunk before fetching any
-            for group in groups.values():
-                # tail remainder, routed as the JAX driver routes it: when
-                # the remainder is a minority of a chunk, its cells take the
-                # per-cell path below; otherwise (or when the whole group is
-                # smaller than one chunk) they form a shorter last chunk
-                n_full, rem = divmod(len(group), quantum)
-                if n_full and 0 < rem <= quantum // 2:
-                    small.extend(group[n_full * quantum:])
-                    group = group[:n_full * quantum]
-                for c0 in range(0, len(group), quantum):
-                    # the batch is the chunk's true cells: one card needs
-                    # no padding to a fixed batch
-                    chunk = group[c0:c0 + quantum]
-                    with span("grid_launch"):
-                        fin = sharded_grid_device_refine_evidence(
-                            [(c[3], c[4], c[5]) for c in chunk],
-                            kmax=kmax,
-                            prior_volumes=[c[7] for c in chunk],
-                            sum_adjusted_weights=[
-                                c[8] if c[8] is not None
-                                else float(np.sum(c[5])) for c in chunk],
-                            chains2=([c[6] for c in chunk] if cross
-                                     else None),
-                            engine=engine, group=LOCAL, device=device,
-                            defer=True)
-                    pend_b.append((chunk, fin))
-            for chunk, fin in pend_b:
-                with span("grid_fetch"):
-                    out = fin()
-                for (imm, icc, *_), lnz in zip(chunk, out):
-                    mce[imm, icc, :] = lnz
-            cells = small
-        pend = []
-        for cell in cells:
-            with span("grid_launch"):
-                t, host = _device_refine_prepare(cell[3], cell[4], cell[5],
-                                                 kmax, 4, samples2=cell[6],
-                                                 device=device)
-                out = fused_refine_dotp(
-                    t["q64"], t["r64"], t["scal"], host["n_ref"],
-                    host["ndim"], host["inv_s2"], k_sel=host["k_sel"],
-                    kmax=host["kmax_eff"], engine=engine,
-                    self_mode=not cross)
-            pend.append((cell, host, out))
-        for (imm, icc, _nd, s1, lnl1, w1, s2, pv, sumw_adj), host, flat \
-                in pend:
-            with span("grid_fetch"):
-                flat = flat.cpu().numpy()
-                rerun = flat[-1] > 0 or not np.all(np.isfinite(flat[:-1]))
-                if not rerun:
-                    mce[imm, icc, :] = _device_refine_finalize(
-                        flat, host, kmax, pv, sumw_adj)
-            if rerun:
-                # rare thin-margin or overflowing cell: redo synchronously
-                # with the retry/fallback-capable wrapper
-                count("grid_reruns")
-                with span("grid_rerun"):
-                    mce[imm, icc, :] = device_refine_evidence(
-                        s1, lnl1, w1, samples2=s2, kmax=kmax,
-                        prior_volume=pv, sum_adjusted_weights=sumw_adj,
-                        pad_candidates=20, engine=engine, device=device)
-        return
+        _device_cells(cells, mce, nchain=len(chain_exts), **kw)
+    else:
+        _grouped_cells(cells, mce, precision=precision, **kw)
 
-    # one batched call per row-bucket group: a batch holds chains of
-    # similar length, so a chunk's short members leave little of it idle;
-    # zero-padded coordinates make mixed-ndim groups fine in refine
-    # precision, while the fast program whitens on the card and takes one
-    # ndim per group
+
+def _device_cells(cells, mce, *, nchain, kmax, cross, engine, device):
+    """Fill the cells' rows on the device path, every launch made before
+    any result is fetched.  A lone cell's thin or non-finite first pass
+    re-runs synchronously through ``device_refine_evidence``."""
+    from .ops import pipeline
+    from .ops.knn import bucket_size_pow2
+    # LOCAL: under --distributed each process runs its own datasets on its
+    # own card, as JAX's default mesh takes the process's local devices
+    from .parallel.ring import (LOCAL, _dpad_class,
+                                sharded_grid_device_refine_evidence)
+
+    # Chunk quantum: how many same-bucket cells share one batched
+    # selection launch.  Per-chain mode (N times the cells at 1/N the
+    # rows) chunks by default; AllChains cells go one by one.  Override
+    # with MCE_GRID_QUANTUM (1 = per-cell launches).
+    q_env = os.environ.get("MCE_GRID_QUANTUM")
+    quantum = int(q_env) if q_env else (4 if nchain > 1 else 1)
+    groups: Dict[tuple, list] = {}
+    lone = cells
+    if quantum > 1 and len(cells) > 1:
+        lone = []
+        for c in cells:
+            n_ref = len(c.samples2) if cross else len(c.lnl)
+            if n_ref <= kmax:       # too short for the batched program
+                lone.append(c)
+                continue
+            key = (bucket_size_pow2(len(c.lnl)), _dpad_class(c.ndim),
+                   bucket_size_pow2(len(c.samples2)) if cross else 0)
+            groups.setdefault(key, []).append(c)
+    chunks = []
+    for group in groups.values():
+        # tail remainder, routed as the JAX driver routes it: when the
+        # remainder is a minority of a chunk, its cells go one by one;
+        # otherwise (or when the whole group is smaller than one chunk)
+        # they form a shorter last chunk
+        n_full, rem = divmod(len(group), quantum)
+        if n_full and 0 < rem <= quantum // 2:
+            lone.extend(group[n_full * quantum:])
+            group = group[:n_full * quantum]
+        for c0 in range(0, len(group), quantum):
+            # the batch is the chunk's true cells: one card needs no
+            # padding to a fixed batch
+            chunk = group[c0:c0 + quantum]
+            with span("grid_launch"):
+                fin = sharded_grid_device_refine_evidence(
+                    [(c.samples, c.lnl, c.weights) for c in chunk],
+                    kmax=kmax, prior_volumes=[c.prior_volume for c in chunk],
+                    sum_adjusted_weights=[
+                        c.sumw_adj if c.sumw_adj is not None
+                        else float(np.sum(c.weights)) for c in chunk],
+                    chains2=[c.samples2 for c in chunk] if cross else None,
+                    engine=engine, group=LOCAL, device=device, defer=True)
+            chunks.append((chunk, fin))
+    for chunk, fin in chunks:
+        with span("grid_fetch"):
+            out = fin()
+        for c, lnz in zip(chunk, out):
+            mce[c.imm, c.icc, :] = lnz
+    passes = []
+    for c in lone:
+        with span("grid_launch"):
+            flat, _, plan = pipeline.device_refine_launch(
+                c.samples, c.lnl, c.weights, samples2=c.samples2, kmax=kmax,
+                engine=engine, device=device)
+        passes.append((c, flat, plan))
+    for c, flat, plan in passes:
+        with span("grid_fetch"):
+            row = pipeline.device_refine_finish(
+                flat.cpu().numpy(), plan, prior_volume=c.prior_volume,
+                sum_adjusted_weights=c.sumw_adj)
+        if isinstance(row, str):
+            count("grid_reruns")
+            with span("grid_rerun"):
+                row = pipeline.device_refine_evidence(
+                    c.samples, c.lnl, c.weights, samples2=c.samples2,
+                    kmax=kmax, prior_volume=c.prior_volume,
+                    sum_adjusted_weights=c.sumw_adj, pad_candidates=20,
+                    engine=engine, device=device)
+        mce[c.imm, c.icc, :] = row
+
+
+def _grouped_cells(cells, mce, *, precision, kmax, cross, engine, device):
+    """Fill the cells' rows by one batched call a group of similar lengths
+    (a batch's short members leave little of it idle): a row bucket at
+    refine (zero-padded columns make mixed ndim fine), an (ndim, row
+    bucket) at fast, whose program whitens on the card."""
     from .ops.knn import bucket_size
+    from .parallel.ring import (LOCAL, sharded_grid_auto_evidence,
+                                sharded_grid_evidence_refine)
     by_group: Dict[tuple, list] = {}
-    for cell in cells:
-        key = ((bucket_size(len(cell[4])),) if precision == "refine"
-               else (cell[2], bucket_size(len(cell[4]))))
-        by_group.setdefault(key, []).append(cell)
-    for _, group in by_group.items():
-        chains = [(c[3], c[4], c[5]) for c in group]
-        pv = [c[7] for c in group]
+    for c in cells:
+        key = ((bucket_size(len(c.lnl)),) if precision == "refine"
+               else (c.ndim, bucket_size(len(c.lnl))))
+        by_group.setdefault(key, []).append(c)
+    for group in by_group.values():
+        chains = [(c.samples, c.lnl, c.weights) for c in group]
+        pv = [c.prior_volume for c in group]
         with span("grid_launch"):
             if precision == "refine":
                 out = sharded_grid_evidence_refine(
                     chains, kmax=kmax, prior_volumes=pv,
                     sum_adjusted_weights=[
-                        c[8] if c[8] is not None else float(np.sum(c[5]))
-                        for c in group],
-                    chains2=[c[6] for c in group] if cross else None,
+                        c.sumw_adj if c.sumw_adj is not None
+                        else float(np.sum(c.weights)) for c in group],
+                    chains2=[c.samples2 for c in group] if cross else None,
                     engine=engine, group=LOCAL, device=device)
             else:
-                shifts = [0.0 if c[8] is None
-                          else float(np.log(c[8]) - np.log(np.sum(c[5])))
+                shifts = [0.0 if c.sumw_adj is None
+                          else float(np.log(c.sumw_adj)
+                                     - np.log(np.sum(c.weights)))
                           for c in group]
                 out = sharded_grid_auto_evidence(
                     chains, kmax=kmax, prior_volumes=pv,
                     sumw_log_shifts=shifts, engine=engine, group=LOCAL,
                     device=device)
-        for (imm, icc, *_), lnz in zip(group, out):
-            mce[imm, icc, :] = lnz
+        for c, lnz in zip(group, out):
+            mce[c.imm, c.icc, :] = lnz
 
 
 def dataset_evidence(rootdir: str, dataset: str, *, kmax: int = 2,
@@ -566,59 +563,35 @@ def dataset_evidence(rootdir: str, dataset: str, *, kmax: int = 2,
                 thinfrac=thinfrac, use_h0_prior=use_h0_prior, mce=mce,
                 info=info, precision=precision, cross=cross, engine=engine,
                 seed=seed, parse_workers=parse_workers, device=device)
-            if np.all(np.isnan(mce)):
-                return None
-            return _build_dataset_frame(mce, names, cols, nchain, info)
-
-        # Prefetch raw chain files on a worker thread while the device
-        # computes.
-        from .chains.reader import load_chains
-
-        def prefetch(fchain):
-            # an exception (a missing chain) is a NaN cell downstream
-            return _on_worker(lambda: load_chains(fchain))
-
-        jobs = [(fname + ext) for fname in path_list for ext in chain_exts]
-        pool = ThreadPoolExecutor(max_workers=max(1, parse_workers))
-        futures = {j: pool.submit(prefetch, j) for j in jobs}
-
-        vol_norm = 1.0
-        for imm, (mm, fname) in enumerate(zip(names, path_list)):
-            with span("grid_prologue"):
-                pro = _model_prologue(mm, fname, info, use_h0_prior, futures,
-                                      chain_exts, vol_norm)
-            if pro is None:
-                continue
-            prior_volume, ndim, h0i, vol_norm = pro
-            isfunc = make_h0_gauss_lnp(h0i) if h0i is not None else None
-            nc_read, nc_use = "", ""
-            for icc, ext in enumerate(chain_exts):
-                fchain = fname + ext
-                try:
-                    # pop: keeping every parsed chain referenced until the
-                    # end of the dataset would hold multi-GB of float64
-                    # arrays alive
-                    chains = _take(futures.pop(fchain))
-                    if isinstance(chains, Exception):
-                        raise chains
-                    count("grid_cells")
-                    with span("grid_launch"):
-                        e, einfo = MCEvidence(
-                            chains, ndim=ndim, isfunc=isfunc,
-                            priorvolume=prior_volume, kmax=kmax,
-                            verbose=verbose, burnlen=burnfrac,
-                            thinlen=thinfrac, split=cross, seed=seed,
-                            engine=engine, precision=precision,
-                            device=device,
-                        ).evidence(info=True, pos_lnp=False)
-                    mce[imm, icc, :] = e
-                    nc_read += f"{einfo['Nsamples_read']},"
-                    nc_use += f"{einfo['Nsamples']},"
-                except Exception as exc:
-                    logger.warning("evidence failed for %s: %s", fchain, exc)
-            info["N_read"].append(nc_read)
-            info["N_used"].append(nc_use)
-        pool.shutdown(wait=False)
+        else:
+            from .chains.reader import load_chains
+            for imm, (prior_volume, ndim, h0i), chains in _dataset_walk(
+                    path_list, names, chain_exts, load_chains, info=info,
+                    use_h0_prior=use_h0_prior, parse_workers=parse_workers):
+                isfunc = make_h0_gauss_lnp(h0i) if h0i is not None else None
+                nc_read, nc_use = "", ""
+                for icc, fchain, chain in chains:
+                    try:
+                        if isinstance(chain, Exception):
+                            raise chain     # a missing chain: a NaN cell
+                        count("grid_cells")
+                        with span("grid_launch"):
+                            e, einfo = MCEvidence(
+                                chain, ndim=ndim, isfunc=isfunc,
+                                priorvolume=prior_volume, kmax=kmax,
+                                verbose=verbose, burnlen=burnfrac,
+                                thinlen=thinfrac, split=cross, seed=seed,
+                                engine=engine, precision=precision,
+                                device=device,
+                            ).evidence(info=True, pos_lnp=False)
+                        mce[imm, icc, :] = e
+                        nc_read += f"{einfo['Nsamples_read']},"
+                        nc_use += f"{einfo['Nsamples']},"
+                    except Exception as exc:
+                        logger.warning("evidence failed for %s: %s", fchain,
+                                       exc)
+                info["N_read"].append(nc_read)
+                info["N_used"].append(nc_use)
 
         if np.all(np.isnan(mce)):
             return None

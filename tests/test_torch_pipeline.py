@@ -315,12 +315,11 @@ def test_grid_refine_matches_reference(cross):
 
 def test_fused_batch_matches_per_cell():
     import torch
-    preps = [pipeline._device_refine_prepare(*_chain(60 + i, n=n, ndim=3),
-                                             None, 3, 4, device="cpu")
-             for i, n in enumerate((500, 340, 410))]
-    per_cell = [pipeline.fused_refine_dotp(
-        t["q64"], t["r64"], t["scal"], h["n_ref"], h["ndim"], h["inv_s2"],
-        k_sel=h["k_sel"], kmax=3) for t, h in preps]
+    launched = [pipeline.device_refine_launch(
+        *_chain(60 + i, n=n, ndim=3), kmax=3, device="cpu")
+        for i, n in enumerate((500, 340, 410))]
+    per_cell = [flat for flat, _, _ in launched]
+    preps = [(t, h) for _, t, h in launched]
     rows = max(h["n"] for _, h in preps)
     q = torch.zeros((3, rows, 3), dtype=torch.float64)
     scal = torch.zeros((3, rows), dtype=torch.float64)

@@ -114,21 +114,31 @@ def test_the_stages_are_spanned_under_the_dataset_collector(
     assert ("device_prep", "grid_launch") in {s[:2] for s in spans}
 
 
+def _thin(out):
+    out[-1] = 1.0               # the thin-margin count of the cell
+
+
+def _non_finite(out):
+    out[0] = float("inf")       # a sum past the f64 range
+
+
+@pytest.mark.parametrize("fault", [_thin, _non_finite],
+                         ids=["thin", "non-finite"])
 def test_a_flat_result_that_forces_the_rerun_counts_one(
-        grid, tmp_path, monkeypatch):
+        grid, tmp_path, monkeypatch, fault):
     root, _, ref = grid
     orig = pipeline.fused_refine_dotp
     calls = []
 
-    def thin_second(*a, **k):
+    def fault_second(*a, **k):
         out = orig(*a, **k)
         calls.append(1)
         if len(calls) == 2:
             out = out.clone()
-            out[-1] = 1.0           # the thin-margin count of the cell
+            fault(out)
         return out
 
-    monkeypatch.setattr(pipeline, "fused_refine_dotp", thin_second)
+    monkeypatch.setattr(pipeline, "fused_refine_dotp", fault_second)
     timings = {}
     with collect(timings, []):
         df = run_main(root, tmp_path)
