@@ -67,8 +67,10 @@ def _parse_cache_path(path: str) -> Optional[str]:
 def parse_chain_file(path: str) -> np.ndarray:
     """Parse one whitespace-delimited chain file to a float64 matrix.
 
-    A parse from text counts ``parse_fields`` and ``parse_fields_fixed``
-    (``utils/spans.py``); a read from the parse cache counts nothing."""
+    A parse from text counts ``parse_files``, ``parse_slices`` (the row
+    slices it was decoded in, one where the native parser did not take
+    it), ``parse_fields`` and ``parse_fields_fixed`` (``utils/spans.py``);
+    a read from the parse cache counts nothing."""
     cpath = _parse_cache_path(path)
     if cpath and os.path.exists(cpath):
         try:
@@ -86,11 +88,14 @@ def parse_chain_file(path: str) -> np.ndarray:
                               dtype=np.float64).to_numpy()
         except Exception:
             arr = np.loadtxt(path)
-        nfixed = 0
+        nfixed, slices = 0, 1
     else:
-        arr, nfixed = got
-    # the fields converted from text, and those of them the native
-    # parser's fixed-layout decoder took, under the caller's collector
+        arr, nfixed, slices = got
+    # the file, its slices, the fields converted from text, and those of
+    # them the native parser's fixed-layout decoder took, under the
+    # caller's collector
+    count("parse_files")
+    count("parse_slices", slices)
     count("parse_fields", arr.size)
     count("parse_fields_fixed", nfixed)
     if cpath:

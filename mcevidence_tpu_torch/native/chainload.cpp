@@ -6,25 +6,38 @@
 // converts each number once (no line splitting, no Python object churn).
 //
 // C ABI (used from Python via ctypes, see chainload.py):
-//   h = chainload_open(path, &rows_bound, &ncols)
-//     maps the file; rows_bound is its newline count (plus one for a last
-//     line without '\n'), ncols the number of values on its first data
-//     line.  NULL on error (unreadable or empty file, a bad first line).
+//   h = chainload_open(path, slices, &rows_bound, &ncols)
+//     maps the file and cuts it into `slices` runs of whole lines; rows_bound
+//     is its newline count (plus one for a last line without '\n'), ncols
+//     the number of values on its first data line.  NULL on error
+//     (unreadable or empty file, a bad first line).
 //   chainload_fill(h, out, capacity, &nrows, &nfixed)
 //     converts every data line into out (row-major) up to `capacity`
-//     doubles; nrows gets the rows written, nfixed the values the
-//     fixed-layout decoder took.  Returns the number of doubles written,
-//     or -1 on error (an unparsable or over-long token, a ragged row, a
-//     capacity overrun).
+//     doubles, one thread a slice; nrows gets the rows written, nfixed the
+//     values the fixed-layout decoder took.  Returns the number of doubles
+//     written, or -1 on error (an unparsable or over-long token, a ragged
+//     row, a capacity overrun, in any slice).
 //   chainload_close(h) unmaps the file.
 //
 // Lines starting with '#' (after leading spaces) are comments.  Column count
 // is fixed by the first data line; ragged rows are an error.
+//
+// Slices: the byte offsets size * j / slices, each moved forward past the
+// next '\n', cut the file; the scan that counts its newlines records each
+// slice's start and the lines before it.  A slice writes its rows from that
+// line count on (a data row is one line, so it writes no further than its
+// own lines), and after the join its rows move down over the rows that
+// blank and comment lines before it did not fill.  Every line decodes as in
+// a one-slice parse, since a slice ends just past a '\n' that ends its last
+// line: the table is the same bit for bit.
 
 #include <cerrno>
 #include <cstdint>
 #include <cstdlib>
 #include <cstring>
+#include <system_error>
+#include <thread>
+#include <vector>
 
 #include <fcntl.h>
 #include <sys/mman.h>
@@ -313,12 +326,53 @@ struct Table {
   const char* data;
   size_t size;
   long long cols;
+  // slice j is data[start[j], start[j + 1]), after before[j] lines
+  std::vector<size_t> start;
+  std::vector<long long> before;
 };
+
+// What one slice wrote at out + first_row * cols.
+struct SliceResult {
+  long long first_row = 0;
+  long long rows = 0;
+  long long fixed = 0;
+  bool ok = true;
+};
+
+void fill_slice(const Table& t, size_t j, double* out, long long capacity,
+                SliceResult* r) {
+  const char* p = t.data + t.start[j];
+  const char* end = t.data + t.start[j + 1];
+  r->first_row = t.before[j];
+  // its own lines' room, within the caller's capacity
+  long long room = (t.before[j + 1] - t.before[j]) * t.cols;
+  const long long left = capacity - r->first_row * t.cols;
+  if (left < room) room = left < 0 ? 0 : left;
+  double* dst = out + r->first_row * t.cols;
+  long long written = 0, fixed = 0;
+  auto emit = [&](double v, bool f) {
+    if (written >= room) return false;
+    dst[written++] = v;
+    fixed += f;
+    return true;
+  };
+  long long rows = 0;
+  for (p = skip_to_data(p, end); p < end; p = skip_to_data(p, end)) {
+    // a bad token, an overrun or a ragged row
+    if (parse_line(&p, end, emit) != t.cols) {
+      r->ok = false;
+      return;
+    }
+    ++rows;
+  }
+  r->rows = rows;
+  r->fixed = fixed;
+}
 
 }  // namespace
 
-extern "C" void* chainload_open(const char* path, long long* rows_bound,
-                                long long* ncols) {
+extern "C" void* chainload_open(const char* path, long long slices,
+                                long long* rows_bound, long long* ncols) {
   int fd = ::open(path, O_RDONLY);
   if (fd < 0) return nullptr;
   struct stat st;
@@ -333,13 +387,27 @@ extern "C" void* chainload_open(const char* path, long long* rows_bound,
   if (data == MAP_FAILED) return nullptr;
   madvise(const_cast<char*>(data), size, MADV_SEQUENTIAL);
 
+  // one scan counts the newlines and finds each slice's start: the first
+  // '\n' at or past its offset ends the slice before it
+  const size_t s = slices < 1 ? 1 : static_cast<size_t>(slices);
+  std::vector<size_t> start(s + 1, size);
+  std::vector<long long> before(s + 1, 0);
+  start[0] = 0;
   const char* end = data + size;
-  long long lines = end[-1] != '\n';
+  long long newlines = 0;
+  size_t j = 1;
   for (const char* p = data;
        (p = static_cast<const char*>(memchr(p, '\n', end - p))) != nullptr;
        ++p) {
-    ++lines;
+    ++newlines;
+    const size_t at = static_cast<size_t>(p - data);
+    for (; j < s && at >= size * j / s; ++j) {
+      start[j] = at + 1;
+      before[j] = newlines;
+    }
   }
+  const long long lines = newlines + (end[-1] != '\n');
+  for (; j <= s; ++j) before[j] = lines;
   const char* first = skip_to_data(data, end);
   const long long cols =
       parse_line(&first, end, [](double, bool) { return true; });
@@ -349,30 +417,41 @@ extern "C" void* chainload_open(const char* path, long long* rows_bound,
   }
   *rows_bound = lines;
   *ncols = cols;
-  return new Table{data, size, cols};
+  return new Table{data, size, cols, std::move(start), std::move(before)};
 }
 
 extern "C" long long chainload_fill(void* handle, double* out,
                                     long long capacity, long long* nrows,
                                     long long* nfixed) {
   const Table& t = *static_cast<const Table*>(handle);
-  const char* end = t.data + t.size;
-  long long rows = 0, written = 0, fixed = 0;
-  auto emit = [&](double v, bool f) {
-    if (written >= capacity) return false;
-    out[written++] = v;
-    fixed += f;
-    return true;
-  };
-  for (const char* p = skip_to_data(t.data, end); p < end;
-       p = skip_to_data(p, end)) {
-    // a bad token, an overrun or a ragged row
-    if (parse_line(&p, end, emit) != t.cols) return -1;
-    ++rows;
+  // slice 0 on the calling thread, each other on a thread of its own
+  std::vector<SliceResult> res(t.start.size() - 1);
+  std::vector<std::thread> threads;
+  threads.reserve(res.size());
+  for (size_t j = 1; j < res.size(); ++j) {
+    try {
+      threads.emplace_back(fill_slice, std::cref(t), j, out, capacity,
+                           &res[j]);
+    } catch (const std::system_error&) {  // no thread to be had: decode here
+      fill_slice(t, j, out, capacity, &res[j]);
+    }
+  }
+  fill_slice(t, 0, out, capacity, &res[0]);
+  for (std::thread& th : threads) th.join();
+  long long rows = 0, fixed = 0;
+  for (const SliceResult& r : res) {
+    if (!r.ok) return -1;
+    // close the gap that blank and comment lines left before the slice
+    if (r.first_row != rows && r.rows > 0) {
+      memmove(out + rows * t.cols, out + r.first_row * t.cols,
+              sizeof(double) * r.rows * t.cols);
+    }
+    rows += r.rows;
+    fixed += r.fixed;
   }
   *nrows = rows;
   *nfixed = fixed;
-  return written;
+  return rows * t.cols;
 }
 
 extern "C" void chainload_close(void* handle) {

@@ -35,9 +35,10 @@ and fetches in one), ``grid_fetch`` (the fetch and the finalize),
 ``grid_rerun`` (the synchronous re-run of a thin-margin cell) and
 ``grid_tables`` (the frame; in ``run_grid`` and ``main`` also the txt, the
 csv and the aggregate, under the caller's collector), with the counts
-``grid_cells`` and ``grid_reruns``, and ``parse_fields`` and
-``parse_fields_fixed`` (``chains/reader.py``), which the prefetch threads
-hand back with each parse.  ``_stage_log`` logs the stages.
+``grid_cells`` and ``grid_reruns``, and ``parse_files``, ``parse_slices``,
+``parse_fields`` and ``parse_fields_fixed`` (``chains/reader.py``), which
+the prefetch threads hand back with each parse.  ``_stage_log`` logs the
+stages.
 """
 
 from __future__ import annotations
@@ -250,7 +251,8 @@ def _model_prologue(mm, fname, info, use_h0_prior, futures, chain_exts,
     return prior_volume, par.ndim, h0i, vol_norm
 
 
-PARSE_COUNTS = ("parse_fields", "parse_fields_fixed")
+PARSE_COUNTS = ("parse_files", "parse_slices", "parse_fields",
+                "parse_fields_fixed")
 
 
 def _on_worker(load, path):
