@@ -17,11 +17,13 @@ ln Z.  Three fallbacks route to the host-refine path (host whitening; the
 selection and the f64 refine still run on the card), each logged: ndim >
 ``DEVICE_NDIM_MAX``, a device-memory plan over the budget, and a
 non-finite sum; thin candidate margins retry once with ``4*pad+8``
-candidates.  A pass is ``device_refine_launch`` and, after the fetch,
-``device_refine_finish`` (the grid launches all cells first).  Spans
-(``utils/spans.py``): ``device_prep`` (the host f64 prep), ``upload`` (the
-copies to the card), ``device_run`` (the launches and the wait for the
-scalars) and ``reselect`` (the thin-margin re-run, around its own three).
+candidates, from the first pass's uploads.  A pass is
+``device_refine_launch`` and, after the fetch, ``device_refine_finish``
+(the grid launches all cells first).  Spans (``utils/spans.py``):
+``device_prep`` (the host f64 prep), ``upload`` (the copies to the card),
+``device_run`` (the launches and the wait for the scalars) and
+``reselect`` (the thin-margin re-run, around its own ``device_run``); the
+count ``thin_rows`` (the first pass's thin rows).
 
 One ``fast`` estimate (``fast_auto_evidence``, ``fused_auto_evidence``)
 runs all in f32: host f64 centring -> upload -> masked-moment whitening,
@@ -43,7 +45,7 @@ import numpy as np
 import torch
 
 from ..utils.device import resolve_device
-from ..utils.spans import span
+from ..utils.spans import count, span
 from .estimator import (log_ball_volume_const, log_evidence_from_knn,
                         log_evidence_from_knn_np)
 from .knn import exact_knn, refine_chunk_rows, refined_d2_chunks, selector
@@ -319,14 +321,22 @@ def device_refine_launch(samples, lnlike, weights=None, *, samples2=None,
     t, plan = _device_refine_prepare(samples, lnlike, weights, kmax,
                                      pad_candidates, samples2=samples2,
                                      device=device)
+    return _device_refine_pass(t, plan, engine=engine, wait=wait), t, plan
+
+
+def _device_refine_pass(t, plan, *, engine: str, wait: bool):
+    """``fused_refine_dotp`` of uploaded tensors ``t`` at the ``plan``'s
+    k_sel: [dotp..., thin_count] on the device, not waited for, or with
+    ``wait`` fetched as numpy (the launch and the wait under
+    ``device_run``)."""
     with span("device_run") if wait else nullcontext():
         flat = fused_refine_dotp(
             t["q64"], t["r64"], t["scal"], plan["n_ref"], plan["ndim"],
             plan["inv_s2"], k_sel=plan["k_sel"], kmax=plan["kmax_eff"],
-            engine=engine, self_mode=samples2 is None)
+            engine=engine, self_mode=not plan["cross"])
         if wait:
             flat = flat.cpu().numpy()
-    return flat, t, plan
+    return flat
 
 
 THIN, NONFINITE = "thin", "non-finite"
@@ -417,8 +427,11 @@ def device_refine_evidence(samples: np.ndarray, lnlike: np.ndarray,
     refinement and reduction on ``device`` -> (kmax+1,) fetch -> f64 host
     bookkeeping.  ~1e-13 lnZ of the refine path; returns k = 1..kmax-1
     like ``evidence_fn``.  Cross mode when ``samples2`` is given (NNs of
-    ``samples`` searched in ``samples2``).  A thin pass runs once more
-    with 4*pad+8 candidates, under the ``reselect`` span."""
+    ``samples`` searched in ``samples2``).  A thin pass (some row's
+    kmax-th candidate within the selection's noise of the last) counts
+    its rows as ``thin_rows`` and runs once more with 4*pad+8 candidates,
+    under the ``reselect`` span, from the first pass's uploads: the host
+    prep and the upload run once."""
     kmax = max(2, kmax)
     samples = np.asarray(samples, np.float64)
     n, ndim = samples.shape
@@ -432,6 +445,7 @@ def device_refine_evidence(samples: np.ndarray, lnlike: np.ndarray,
                     ndim, DEVICE_NDIM_MAX)
         return host_refine_evidence(samples, lnlike, weights, **fallback)
     dev = resolve_device(device)
+    t = None
     with ExitStack() as retry:
         for pad in (pad_candidates, 4 * pad_candidates + 8):
             k_sel = min(kmax + pad, n_ref)
@@ -445,9 +459,13 @@ def device_refine_evidence(samples: np.ndarray, lnlike: np.ndarray,
                     "refine path (set MCE_DEVICE_HBM_BUDGET_GB to change the "
                     "budget)", est / 2 ** 30, n, k_sel, budget / 2 ** 30)
                 break
-            flat, _, plan = device_refine_launch(
-                samples, lnlike, weights, samples2=samples2, kmax=kmax,
-                pad_candidates=pad, engine=engine, device=dev, wait=True)
+            if t is None:
+                t, plan = _device_refine_prepare(
+                    samples, lnlike, weights, kmax, pad, samples2=samples2,
+                    device=dev)
+            else:
+                plan = dict(plan, k_sel=k_sel, kmax_eff=min(kmax, k_sel))
+            flat = _device_refine_pass(t, plan, engine=engine, wait=True)
             # the retry, or every reference row already a candidate
             row = device_refine_finish(
                 flat, plan, prior_volume=prior_volume,
@@ -461,6 +479,7 @@ def device_refine_evidence(samples: np.ndarray, lnlike: np.ndarray,
                 break
             if row is not THIN:
                 return row
+            count("thin_rows", int(flat[-1]))
             logger.info("device-refine: thin margins on %d rows; re-running "
                         "with %d extra candidates", int(flat[-1]),
                         4 * pad + 8)

@@ -4,9 +4,10 @@
 selection's device, and fetches only the k sorted distances.  These tests
 hold it, on the card, to the host refine and guard
 (``guarded_refine_knn_f64``) of the card's own indices, and the refine
-precision to the device precision.  They are marked ``cuda`` and skip
-without a card.  No JAX here: the card's answers are held to the port's
-own host path.
+precision to the device precision, and the device precision's
+thin-margin re-run from the first pass's uploads to a pass prepped afresh.
+They are marked ``cuda`` and skip without a card.  No JAX here: the card's
+answers are held to the port's own host path.
 """
 
 import itertools
@@ -91,3 +92,35 @@ def test_refine_matches_device_precision_on_a_65k_chain(cuda_device):
            for p in ("refine", "device")}
     assert np.isfinite(got["refine"]).all()
     assert np.abs(got["refine"] - got["device"]).max() <= REFINE_VS_DEVICE
+
+
+@pytest.mark.cuda
+def test_thin_rows_rerun_on_the_card_from_the_first_uploads(cuda_device):
+    """Planted thin rows (a row and ten exact copies of a point at
+    distance 1, far out in a Gaussian's tails): the estimate counts them,
+    preps and uploads once, and its re-run agrees with a pass prepped
+    afresh at the retry's candidates."""
+    from mcevidence_tpu_torch.ops import pipeline
+    rng = np.random.default_rng(11)
+    theta = rng.standard_normal((20000, 8))
+    planted = []
+    for j in range(3):
+        q = np.zeros(8)
+        q[j] = 7.0
+        u = rng.standard_normal(8)
+        planted += [q[None], np.repeat((q + u / np.linalg.norm(u))[None],
+                                       10, axis=0)]
+    samples = np.vstack([theta, *planted])
+    lnl = -0.5 * np.sum(samples * samples, axis=1)
+    mce = MCEvidence({"samples": samples, "loglikes": lnl}, kmax=5,
+                     precision="device", device=cuda_device, verbose=0)
+    got = mce.evidence()
+    assert mce.timings["thin_rows"] == 3
+    names = [s[0] for s in mce.spans]
+    assert names.count("device_prep") == names.count("upload") == 1
+    assert names.count("device_run") == 2
+    flat, _, plan = pipeline.device_refine_launch(
+        samples, lnl, kmax=5, pad_candidates=24, device=cuda_device,
+        wait=True)
+    fresh = pipeline.device_refine_finish(flat, plan, last=True)
+    np.testing.assert_allclose(got, fresh, rtol=0, atol=1e-12)

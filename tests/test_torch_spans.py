@@ -113,12 +113,14 @@ def test_the_lattice_reselects_and_the_gaussian_does_not(chain, precision):
         assert mce.timings["reselect_s"] > 0
         again = [s for s in mce.spans if s[0] == "reselect"]
         assert len(again) == 1 and again[0][1] == layer
-        # the second pass's steps run inside the reselection (at refine
-        # the host prep and the upload are not run again)
-        inner = steps[2:] if precision == "refine" else steps
-        for step in inner:
+        # the second pass's steps run inside the reselection; the host
+        # prep and the upload (device_prep and upload at device) are not
+        # run again
+        for step in steps[2:]:
             assert [s[1] for s in mce.spans if s[0] == step] == [
                 layer, "reselect"]
+        for step in steps[:2]:
+            assert [s[1] for s in mce.spans if s[0] == step] == [layer]
 
 
 def test_a_second_estimate_replaces_the_first_and_keeps_the_ingest():
