@@ -29,6 +29,10 @@
 //   absent slots (fewer than k candidates) hold +inf and -1
 //   self mode (query row i is reference row i): slot 0 holds (0, i) even when
 //   a duplicate point with a smaller index sits at distance 0
+//   rechecks                 an int64 counter on the device, or null: the
+//                            small-k body adds the pairs its screen passed
+//                            to the exact recheck (below); the large-k body
+//                            counts nothing
 //
 // The unbatched selections are the case B = 1 with null count arrays.
 //
@@ -59,24 +63,60 @@
 // What bounds the bodies on the H100, and what the design does about it.
 // The TPU kernels (K1-K9, mcevidence_tpu/ops/knn_pallas.py) take d2 by the
 // matrix identity on the matrix unit.  Here the exact contract rules that
-// out in TF32 or 3xTF32: `fast` consumes the returned d2, and near
-// neighbours in whitened space (d2 ~ 0.06 against |q|^2 ~ 8) would lose
-// ~1e-5 of it to cancellation.  So the bodies take differences on the CUDA
-// cores: 2 f32 instructions a coordinate a pair (subtract, FMA), ~2 ms of
-// issue at N = 65536, d = 8: the bound of the TPU kernel's matrix work (2 d
-// flops a pair at the f32 peak) is 1.03 ms, so this design reaches at most
-// ~50% of it.  Around that floor:
-//   small-k  bound by instruction issue and its stalls: every shared read,
-//            key, compare and branch is one more instruction a pair.  A
-//            thread holds up to two query rows, so one broadcast read of a
-//            tile row feeds both; the keys of four tile rows are screened
-//            by one compare of their least high word against the worst
-//            key's (never less strict than the 64-bit compare, so the
-//            result is the same), and only a passing screen looks at each
-//            key, the self test last; two threads share each query row,
-//            one tile each, so a card holds twice the warps, and merge
-//            their lists at the end; the tiles are double-buffered with
-//            cp.async, one barrier a step.
+// out as the returned d2, in TF32, 3xTF32 or f32 alike: `fast` consumes
+// it, and near neighbours in whitened space (d2 ~ 0.06 against |q|^2 ~ 8)
+// would lose ~1e-5 of it to cancellation.  So every returned d2 is a sum of
+// differences on the CUDA cores, 2 f32 instructions a coordinate (subtract,
+// FMA).  The bound of the TPU kernel's matrix work (2 d flops a pair at the
+// f32 peak) is 1.03 ms at N = 65536, d = 8, and 263 ms at N = 2^20: one
+// FMA a coordinate a pair.
+//   small-k  bound by instruction issue: every shared read, compare and
+//            branch is one more instruction a pair.  So the identity serves
+//            as a screen that is never stricter than the exact compare,
+//            and only the pairs it passes are recomputed by differences:
+//            - a pair's score is W FMAs from a start value of its tile
+//              row's: s = -|r|^2 (1 - e) / 2 + sum_c q_c r_c, in coordinate
+//              order, which is -(d2 - |q|^2) / 2 up to rounding, so a pair
+//              costs one FMA a coordinate where the differences cost two.
+//              The block computes the start values of a step's rows in
+//              shared memory (one row a thread, W FMAs, one more barrier a
+//              step); a thread holds up to two query rows, so one broadcast
+//              read of a tile row (and of its start value) feeds both;
+//            - a query row's floor is -((w (1 + e) + 2^-100) - |q|^2 (1 -
+//              e)) / 2 in two FMAs, with w the largest d2 whose key can
+//              still beat the worst kept key (its high word under ExactKey;
+//              under TruncKey<B> that word with its B low bits set, the
+//              next truncation step less one ulp: Key::widest); it is
+//              rebuilt only after an insert.  The four scores of a screen's
+//              tile rows are folded by fmaxf and compared once, as !(most <
+//              floor);
+//            - only inside a passing screen, and only for a pair whose own
+//              score passes, is d2 recomputed by differences, keyed and
+//              inserted exactly as before (the self test last), so a pair
+//              enters the list iff its exact key beats the worst kept key:
+//              the returned (d2, idx) keep their bits for every key policy.
+//            The slack e = (W + 2) 2^-19 is 8x what the screen needs, from
+//            Higham's gamma_n = n u / (1 - n u), u = 2^-24: the difference
+//            form's d2 lies within gamma_(W+2) d2 of the real |q - r|^2;
+//            |r|^2 and |q|^2 are W-term FMA sums (within gamma_W); the
+//            score's W FMAs onto its start value add at most gamma_W
+//            (|r|^2 + 2 |q| |r|) <= gamma_W (2 |r|^2 + |q|^2); the floor's
+//            two FMAs round once each.  So a pair whose difference-form d2
+//            is <= w scores >= its row's floor once e >= 3 gamma_W + 2 u
+//            and e >= gamma_(W+2) + 2 u, i.e. e = 4 (W + 2) u suffices,
+//            and the 2^-100 covers the subnormal range.  A screen passes
+//            everything while a list holds kEmpty or an infinite or NaN key
+//            (floor -inf), for a query row with |q|^2 > 2^100 or NaN (so
+//            no score overflows), and for a tile row with |r|^2 > 2^126 or
+//            NaN (start value +inf); a NaN score is hidden by fmaxf only
+//            where a coordinate of r is inf or NaN, whose exact d2 is inf
+//            or NaN and beats no finite worst key.  kCutBound's 1e18 rows
+//            (|r|^2 <= 6.4e37 < 2^126) are screened like any other.  A
+//            loose slack costs rechecks, never results: ~k (1 + ln(N /
+//            2k)) a query row and part, under 0.03% of the pairs at 2^20.
+//            Two threads share each query row, one tile each, so a card
+//            holds twice the warps, and merge their lists at the end; the
+//            tiles are double-buffered with cp.async.
 //   large-k  WarpSelect (Johnson, Douze and Jegou, arXiv:1702.08734): a
 //            warp's lanes take 32 different reference rows at a time from
 //            a coordinate-major shared tile (conflict-free), against one
@@ -133,11 +173,17 @@ __device__ __forceinline__ unsigned high_word(unsigned long long key) {
     return static_cast<unsigned>(key >> 32);
 }
 
+// A key policy also gives widest(h): the largest f32 bits of a d2 >= 0 whose
+// key's high word is at most h, the small-k screen's threshold.
+
 // the exact ranking: every bit of d2
 struct ExactKey {
     __device__ __forceinline__ unsigned long long operator()(float d2,
                                                              int j) const {
         return make_key(d2, j);
+    }
+    static __device__ __forceinline__ unsigned widest(unsigned h) {
+        return h;
     }
 };
 
@@ -146,12 +192,15 @@ struct ExactKey {
 template <int B>
 struct TruncKey {
     static_assert(0 < B && B < 23, "B clears mantissa bits only");
+    static constexpr unsigned kLow = (1u << B) - 1u;
     __device__ __forceinline__ unsigned long long operator()(float d2,
                                                              int j) const {
-        constexpr unsigned kKeep = ~((1u << B) - 1u);
-        return (static_cast<unsigned long long>(__float_as_uint(d2) & kKeep)
+        return (static_cast<unsigned long long>(__float_as_uint(d2) & ~kLow)
                 << 32) |
                static_cast<unsigned>(j);
+    }
+    static __device__ __forceinline__ unsigned widest(unsigned h) {
+        return h | kLow;
     }
 };
 
@@ -210,9 +259,12 @@ __device__ __forceinline__ void copy_wait() {
 // member, and kSplit threads share each query row.  The block streams the
 // member's reference rows a step of kSplit tiles of kTile rows at a time,
 // laid out as in global memory: while the block reads one step, cp.async
-// fills the other buffer, one barrier a step; part h of the threads takes
-// tile h of the step.  Every thread of a part reads the same tile row at the
-// same time (a broadcast, no bank conflict) and takes R distances from it.
+// fills the other buffer; once a step has landed, each thread computes one
+// of its rows' screen start values (screen_start) into shared memory, and
+// part h of the threads takes tile h of the step, two barriers a step.
+// Every thread of a part reads the same tile row at the same time (a
+// broadcast, no bank conflict) and scores R pairs from it; only the pairs
+// the screen passes are recomputed by differences and keyed (sweep_tile).
 // Each thread keeps its sorted top-KP keys per row in registers (KP is k
 // rounded up to a power of two, so every index into the list is static) and
 // inserts by one compare-swap pass; at the end the other parts hand their
@@ -224,6 +276,18 @@ template <int W, int KP>
 __host__ __device__ constexpr int small_rows() {
     return W <= 16 && KP <= 8 ? 2 : 1;
 }
+
+// The screen's constants (see "What bounds the bodies" above): the relative
+// slack e of a W-column row, the absolute slack of a floor, and the squared
+// norms past which a query row's screen or a tile row's score passes
+// everything.
+template <int W>
+__host__ __device__ constexpr float screen_slack() {
+    return (W + 2) * 0x1p-19f;
+}
+constexpr float kScreenAbsSlack = 0x1p-100f;
+constexpr float kQueryNormCap = 0x1p100f;
+constexpr float kRowNormCap = 0x1p126f;
 
 // Insert key into a thread's sorted register list best[0..KP) (ascending),
 // dropping the largest.  The caller has checked key < best[KP - 1].
@@ -249,73 +313,148 @@ __device__ __forceinline__ void stage_rows(float* tile, const float* r,
         copy_async<V>(tile + t * V, src + (long long)t * V);
 }
 
-// d2 of R query rows to one staged reference row, each summed in coordinate
-// order
-template <class L, int R>
-__device__ __forceinline__ void row_dists(float (&d2)[R],
-                                          const float (&qv)[R][L::kWidth],
-                                          const float* row) {
-    constexpr int W = L::kWidth, V = L::kVec;
+// columns [c, c + V) of a staged row: one 16-byte read where V = 4
+template <int V>
+__device__ __forceinline__ void load_piece(float (&v)[V], const float* at) {
+    if constexpr (V == 4) {
+        const float4 x = *reinterpret_cast<const float4*>(at);
+        v[0] = x.x;
+        v[1] = x.y;
+        v[2] = x.z;
+        v[3] = x.w;
+    } else {
+        v[0] = at[0];
+    }
+}
+
+// |x|^2 of a query row in registers, summed in coordinate order
+template <int W>
+__device__ __forceinline__ float square_norm(const float (&x)[W]) {
+    float n = 0.0f;
 #pragma unroll
-    for (int i = 0; i < R; ++i) d2[i] = 0.0f;
+    for (int c = 0; c < W; ++c) n = fmaf(x[c], x[c], n);
+    return n;
+}
+
+// A staged row's screen start value, -|r|^2 (1 - e) / 2 (|r|^2 summed in
+// coordinate order), or +inf (its scores pass) where |r|^2 is past
+// kRowNormCap or NaN.
+template <class L>
+__device__ __forceinline__ float screen_start(const float* row) {
+    constexpr int W = L::kWidth, V = L::kVec;
+    float n = 0.0f;
 #pragma unroll
     for (int c = 0; c < W; c += V) {
         float v[V];
-        if constexpr (V == 4) {
-            const float4 x = *reinterpret_cast<const float4*>(row + c);
-            v[0] = x.x;
-            v[1] = x.y;
-            v[2] = x.z;
-            v[3] = x.w;
-        } else {
-            v[0] = row[c];
-        }
+        load_piece<V>(v, row + c);
+#pragma unroll
+        for (int e = 0; e < V; ++e) n = fmaf(v[e], v[e], n);
+    }
+    return n <= kRowNormCap ? n * (-0.5f * (1.0f - screen_slack<W>()))
+                            : __int_as_float(0x7F800000);
+}
+
+// A query row's floor: a pair whose key can beat `worst` scores at least
+// this.  -inf (everything passes) while the list holds kEmpty or an
+// infinite or NaN key, and where |q|^2 (qn) is past kQueryNormCap or NaN.
+template <class Key, int W>
+__device__ __forceinline__ float screen_floor(unsigned long long worst,
+                                              float qn) {
+    constexpr float e = screen_slack<W>();
+    const unsigned h = Key::widest(high_word(worst));
+    if (h >= 0x7F800000u || !(qn <= kQueryNormCap))
+        return -__int_as_float(0x7F800000);
+    return -0.5f * fmaf(-qn, 1.0f - e,
+                        fmaf(__uint_as_float(h), 1.0f + e, kScreenAbsSlack));
+}
+
+// The screen's scores of R query rows against one staged reference row,
+// each W FMAs onto the row's start value in coordinate order.
+template <class L, int R>
+__device__ __forceinline__ void row_scores(float (&s)[R],
+                                           const float (&qv)[R][L::kWidth],
+                                           const float* row, float start) {
+    constexpr int W = L::kWidth, V = L::kVec;
+#pragma unroll
+    for (int i = 0; i < R; ++i) s[i] = start;
+#pragma unroll
+    for (int c = 0; c < W; c += V) {
+        float v[V];
+        load_piece<V>(v, row + c);
 #pragma unroll
         for (int e = 0; e < V; ++e) {
 #pragma unroll
-            for (int i = 0; i < R; ++i) {
-                const float t = qv[i][c + e] - v[e];
-                d2[i] = fmaf(t, t, d2[i]);
-            }
+            for (int i = 0; i < R; ++i) s[i] = fmaf(qv[i][c + e], v[e], s[i]);
         }
     }
 }
 
-// Tile rows [0, rows) (reference rows base + jj) against a thread's R query
-// rows: kScreen rows' distances at a time, then one screen a query row, the
-// smallest high word of their keys against the worst key's; only a screen
-// that passes looks at each key.  kWhole: rows == kTile, so no row of a
-// screen lies past `rows` (else those rows key as kEmpty).
+// d2 of one query row to one staged reference row, the sum of squared
+// differences in coordinate order: the value the list keeps and returns
+template <class L>
+__device__ __forceinline__ float row_dist(const float (&q)[L::kWidth],
+                                          const float* row) {
+    constexpr int W = L::kWidth, V = L::kVec;
+    float d2 = 0.0f;
+#pragma unroll
+    for (int c = 0; c < W; c += V) {
+        float v[V];
+        load_piece<V>(v, row + c);
+#pragma unroll
+        for (int e = 0; e < V; ++e) {
+            const float t = q[c + e] - v[e];
+            d2 = fmaf(t, t, d2);
+        }
+    }
+    return d2;
+}
+
+// Tile rows [0, rows) (reference rows base + jj, start values start[jj])
+// against a thread's R query rows: kScreen rows' scores at a time, then one
+// screen a query row, the largest of its scores against its floor; inside a
+// passing screen each pair whose own score passes is recomputed by
+// differences (counted in `checked`), keyed and inserted, and the floor is
+// rebuilt after an insert.  Two screens a loop pass (unrolled: 3% faster at
+// 2^20 rows on the H100).  kWhole: rows == kTile, so no row of a screen lies
+// past `rows`.
 template <class L, int R, int KP, class Key, bool kWhole>
 __device__ __forceinline__ void sweep_tile(
-        unsigned long long (&best)[R][KP], const float (&qv)[R][L::kWidth],
-        const float* tile, int base, int rows, const int (&self_row)[R]) {
+        unsigned long long (&best)[R][KP], float (&floor)[R],
+        const float (&qv)[R][L::kWidth], const float (&qn)[R],
+        const bool (&active)[R], const float* tile, const float* start,
+        int base, int rows, const int (&self_row)[R], unsigned& checked) {
     constexpr int W = L::kWidth;
     const Key key_of{};
     const int span = kWhole ? kTile : rows;
-#pragma unroll 1
+#pragma unroll 2
     for (int jj = 0; jj < span; jj += kScreen) {
-        float d2[kScreen][R];
+        float s[kScreen][R];
 #pragma unroll
         for (int g = 0; g < kScreen; ++g)
-            row_dists<L, R>(d2[g], qv, tile + (jj + g) * W);
+            row_scores<L, R>(s[g], qv, tile + (jj + g) * W, start[jj + g]);
 #pragma unroll
         for (int i = 0; i < R; ++i) {
-            unsigned least = 0xFFFFFFFFu;
+            float most = s[0][i];  // row jj lies before `rows`
+#pragma unroll
+            for (int g = 1; g < kScreen; ++g)
+                if (kWhole || jj + g < rows) most = fmaxf(most, s[g][i]);
+            if (most < floor[i]) continue;
+            bool moved = false;
 #pragma unroll
             for (int g = 0; g < kScreen; ++g) {
-                const unsigned h = high_word(key_of(d2[g][i], base + jj + g));
-                if (kWhole || jj + g < rows) least = min(least, h);
-            }
-            if (least > high_word(best[i][KP - 1])) continue;
-#pragma unroll
-            for (int g = 0; g < kScreen; ++g) {
+                if (!(kWhole || jj + g < rows) || !active[i] ||
+                    s[g][i] < floor[i])
+                    continue;
+                ++checked;
                 const int j = base + jj + g;
-                const unsigned long long key = key_of(d2[g][i], j);
-                if ((kWhole || jj + g < rows) && key < best[i][KP - 1] &&
-                    j != self_row[i])
+                const unsigned long long key =
+                    key_of(row_dist<L>(qv[i], tile + (jj + g) * W), j);
+                if (key < best[i][KP - 1] && j != self_row[i]) {
                     insert_sorted<KP>(best[i], key);
+                    moved = true;
+                }
             }
+            if (moved) floor[i] = screen_floor<Key, W>(best[i][KP - 1], qn[i]);
         }
     }
 }
@@ -324,13 +463,14 @@ template <class L, int KP, class Key = ExactKey, int Cuts = 0>
 __global__ void __launch_bounds__(kSmallThreads * kSplit)
 knn_small_k_kernel(const float* __restrict__ q, const float* __restrict__ r,
                    Members m, int k, int self_mode,
-                   float* __restrict__ out_d2, int* __restrict__ out_idx) {
+                   float* __restrict__ out_d2, int* __restrict__ out_idx,
+                   unsigned long long* __restrict__ rechecks) {
     constexpr int W = L::kWidth;
     constexpr int R = small_rows<W, KP>();
     constexpr int kStep = kSplit * kTile;       // reference rows a step
     constexpr int kStepFloats = kStep * W;
-    const Key key_of{};
     extern __shared__ __align__(16) float smem[];  // two steps' tiles
+    __shared__ float starts[kStep];  // the current step's start values
     const int b = blockIdx.y;
     const int nq = m.queries(b);
     const int nr = m.refs(b);
@@ -361,13 +501,19 @@ knn_small_k_kernel(const float* __restrict__ q, const float* __restrict__ r,
     if (first >= nq) return;  // the whole block is padding
 
     float qv[R][W] = {};
+    float qn[R], floor[R];
     unsigned long long best[R][KP];
 #pragma unroll
     for (int i = 0; i < R; ++i) {
         if (active[i]) L::load_query(qv[i], q, row[i]);
+        qn[i] = square_norm<W>(qv[i]);
 #pragma unroll
         for (int s = 0; s < KP; ++s) best[i][s] = kEmpty;
+        // an inactive row's screen passes nothing finite
+        floor[i] = active[i] ? screen_floor<Key, W>(kEmpty, qn[i])
+                             : __int_as_float(0x7F800000);
     }
+    unsigned checked = 0;
 
     const int steps = (nr + kStep - 1) / kStep;
     if (steps > 0) {
@@ -379,9 +525,10 @@ knn_small_k_kernel(const float* __restrict__ q, const float* __restrict__ r,
         // rows of this part's tile that lie before nr; with kCutBound nr is
         // a multiple of kTile, so a tile is whole or past the end
         const int left = nr - base;
+        const float* step = smem + (t & 1) * kStepFloats;
         copy_wait();
         // step t has landed everywhere, and every thread is done with the
-        // buffer the next copy overwrites
+        // buffer the next copy overwrites and with the start values
         __syncthreads();
         if (t + 1 < steps) {
             const int next = (t + 1) * kStep;
@@ -389,15 +536,30 @@ knn_small_k_kernel(const float* __restrict__ q, const float* __restrict__ r,
                           min(kStep, nr - next));
             copy_commit();
         }
+        for (int x = threadIdx.x; x < min(kStep, nr - t * kStep);
+             x += blockDim.x)
+            starts[x] = screen_start<L>(step + x * W);
+        __syncthreads();
         if (!any) continue;
-        const float* tile =
-            smem + (t & 1) * kStepFloats + part * (kTile * W);
+        const float* tile = step + part * (kTile * W);
+        const float* start = starts + part * kTile;
         if (left >= kTile)
-            sweep_tile<L, R, KP, Key, true>(best, qv, tile, base, kTile,
-                                            self_row);
+            sweep_tile<L, R, KP, Key, true>(best, floor, qv, qn, active, tile,
+                                            start, base, kTile, self_row,
+                                            checked);
         else if (!(Cuts & kCutBound) && left > 0)
-            sweep_tile<L, R, KP, Key, false>(best, qv, tile, base, left,
-                                             self_row);
+            sweep_tile<L, R, KP, Key, false>(best, floor, qv, qn, active,
+                                             tile, start, base, left,
+                                             self_row, checked);
+    }
+    if (rechecks != nullptr) {
+        // the block's rechecks, one global atomic a block
+        __shared__ unsigned long long block_checked;
+        if (threadIdx.x == 0) block_checked = 0;
+        __syncthreads();
+        atomicAdd(&block_checked, static_cast<unsigned long long>(checked));
+        __syncthreads();
+        if (threadIdx.x == 0) atomicAdd(rechecks, block_checked);
     }
     if (kSplit > 1) {
         // parts 1.. hand their lists to part 0 through shared memory, one
@@ -721,7 +883,8 @@ knn_large_k_kernel(const float* __restrict__ q, const float* __restrict__ r,
 template <class L, int KP, class Key, int Cuts>
 cudaError_t launch_small(const float* q, const float* r, int batch,
                          const Members& m, int k, int self_mode,
-                         float* out_d2, int* out_idx, cudaStream_t stream) {
+                         float* out_d2, int* out_idx,
+                         unsigned long long* rechecks, cudaStream_t stream) {
     constexpr int rows = small_rows<L::kWidth, KP>() * kSmallThreads;
     constexpr int tiles = 2 * kSplit * kTile * L::kWidth * (int)sizeof(float);
     constexpr int lists = (kSplit - 1) * KP * kSmallThreads * 8;
@@ -734,7 +897,7 @@ cudaError_t launch_small(const float* q, const float* r, int batch,
     }
     const dim3 grid((m.q_rows + rows - 1) / rows, batch);
     kernel<<<grid, kSmallThreads * kSplit, smem, stream>>>(
-        q, r, m, k, self_mode, out_d2, out_idx);
+        q, r, m, k, self_mode, out_d2, out_idx, rechecks);
     return cudaGetLastError();
 }
 
@@ -742,19 +905,20 @@ template <class L, class Key = ExactKey, int Cuts = 0>
 cudaError_t dispatch_small_k(const float* q, const float* r, int batch,
                              const Members& m, int k, int self_mode,
                              float* out_d2, int* out_idx,
+                             unsigned long long* rechecks,
                              cudaStream_t stream) {
     // keys kept per thread: k, less the self slot, rounded up to 2^m
     const int keep = self_mode ? k - 1 : k;
     if (keep <= 1)
-        return launch_small<L, 1, Key, Cuts>(q, r, batch, m, k, self_mode, out_d2, out_idx, stream);
+        return launch_small<L, 1, Key, Cuts>(q, r, batch, m, k, self_mode, out_d2, out_idx, rechecks, stream);
     if (keep <= 2)
-        return launch_small<L, 2, Key, Cuts>(q, r, batch, m, k, self_mode, out_d2, out_idx, stream);
+        return launch_small<L, 2, Key, Cuts>(q, r, batch, m, k, self_mode, out_d2, out_idx, rechecks, stream);
     if (keep <= 4)
-        return launch_small<L, 4, Key, Cuts>(q, r, batch, m, k, self_mode, out_d2, out_idx, stream);
+        return launch_small<L, 4, Key, Cuts>(q, r, batch, m, k, self_mode, out_d2, out_idx, rechecks, stream);
     if (keep <= 8)
-        return launch_small<L, 8, Key, Cuts>(q, r, batch, m, k, self_mode, out_d2, out_idx, stream);
+        return launch_small<L, 8, Key, Cuts>(q, r, batch, m, k, self_mode, out_d2, out_idx, rechecks, stream);
     if (keep <= 16)
-        return launch_small<L, 16, Key, Cuts>(q, r, batch, m, k, self_mode, out_d2, out_idx, stream);
+        return launch_small<L, 16, Key, Cuts>(q, r, batch, m, k, self_mode, out_d2, out_idx, rechecks, stream);
     return cudaErrorInvalidValue;
 }
 
@@ -772,10 +936,12 @@ cudaError_t launch_large(const float* q, const float* r, int batch,
     return cudaGetLastError();
 }
 
+// (the large-k body has no screen; its entry points pass a null `rechecks`)
 template <class L, class Key = ExactKey>
 cudaError_t dispatch_large_k(const float* q, const float* r, int batch,
                              const Members& m, int k, int self_mode,
                              float* out_d2, int* out_idx,
+                             unsigned long long* /*rechecks*/,
                              cudaStream_t stream) {
     if (k > kLargeMaxK) return cudaErrorInvalidValue;
     // keys a lane holds in the warp queue: k, less the self slot, over 32,
@@ -792,20 +958,21 @@ cudaError_t dispatch_large_k(const float* q, const float* r, int batch,
 
 using Dispatch = cudaError_t (*)(const float*, const float*, int,
                                  const Members&, int, int, float*, int*,
-                                 cudaStream_t);
+                                 unsigned long long*, cudaStream_t);
 
 // The body of every C entry point: `d` is the launcher for the layout the
 // caller asked for, or null when no layout fits its width.
 inline cudaError_t run(Dispatch d, const float* q, const float* r, int batch,
                        int q_rows, int r_rows, const int* nq, const int* nr,
                        int nr_all, int k, int self_mode, float* out_d2,
-                       int* out_idx, void* stream, int device) {
+                       int* out_idx, void* stream, int device,
+                       unsigned long long* rechecks) {
     cudaError_t err = cudaSetDevice(device);
     if (err != cudaSuccess) return err;
     if (batch <= 0 || q_rows <= 0 || k <= 0) return cudaSuccess;
     if (batch > 65535 || d == nullptr) return cudaErrorInvalidValue;
     const Members m{q_rows, r_rows, nq, nr, nr_all};
-    return d(q, r, batch, m, k, self_mode, out_d2, out_idx,
+    return d(q, r, batch, m, k, self_mode, out_d2, out_idx, rechecks,
              static_cast<cudaStream_t>(stream));
 }
 

@@ -37,8 +37,9 @@
 // `cuts` takes B (1) or B and C (3).
 //
 // What bounds these kernels on the card, and what the bodies do about it,
-// is in knn_common.cuh.  The key policy changes only the key, so the
-// truncation costs one AND a candidate.
+// is in knn_common.cuh.  The key policy changes only the key and the
+// small-k screen's threshold, so the truncation costs one AND a candidate
+// (in the small-k body a recheck) and one OR a rebuilt floor.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -78,17 +79,20 @@ extern "C" {
 
 // Arguments of the packed entry points: those of knn_select.cu's, and
 //   low_bits        11 (K6, K7) or 12 (K1)
+//   rechecks        (knn_select_packed_small_k only) as knn_select.cu's,
+//                   after low_bits
 // knn_select_packed_small_k takes 1 <= k, k - self_mode <= 16;
 // knn_select_packed_large_k takes 1 <= k <= 256.
 int knn_select_packed_small_k(const float* q, const float* r, int batch,
                               int q_rows, int r_rows, const int* nq,
                               const int* nr, int nr_all, int dp, int k,
                               int self_mode, float* out_d2, int* out_idx,
-                              void* stream, int device, int low_bits) {
+                              void* stream, int device, int low_bits,
+                              unsigned long long* rechecks) {
     return static_cast<int>(knn::run(packed_body(dp, low_bits, false), q, r,
                                      batch, q_rows, r_rows, nq, nr, nr_all,
                                      k, self_mode, out_d2, out_idx, stream,
-                                     device));
+                                     device, rechecks));
 }
 
 int knn_select_packed_large_k(const float* q, const float* r, int batch,
@@ -99,23 +103,24 @@ int knn_select_packed_large_k(const float* q, const float* r, int batch,
     return static_cast<int>(knn::run(packed_body(dp, low_bits, true), q, r,
                                      batch, q_rows, r_rows, nq, nr, nr_all,
                                      k, self_mode, out_d2, out_idx, stream,
-                                     device));
+                                     device, nullptr));
 }
 
 // knn_select_prologue: as knn_select_packed_small_k at low_bits = 12, with
 //   r_rows = nr_all the reference rows padded to a multiple of 128 with
 //                   sentinel rows (1e18 in every column)
 //   cuts            1 (B) or 3 (B and C)
+//   rechecks        as knn_select.cu's, after cuts
 int knn_select_prologue(const float* q, const float* r, int batch,
                         int q_rows, int r_rows, const int* nq, const int* nr,
                         int nr_all, int dp, int k, int self_mode,
                         float* out_d2, int* out_idx, void* stream, int device,
-                        int cuts) {
+                        int cuts, unsigned long long* rechecks) {
     if (nr_all % knn::kTile != 0) return cudaErrorInvalidValue;
     return static_cast<int>(knn::run(prologue_body(dp, cuts), q, r, batch,
                                      q_rows, r_rows, nq, nr, nr_all, k,
                                      self_mode, out_d2, out_idx, stream,
-                                     device));
+                                     device, rechecks));
 }
 
 }  // extern "C"

@@ -46,15 +46,19 @@ extern "C" {
 //   nq, nr          int32 [batch] on the device, or null (q_rows; nr_all)
 //   dp              the padded width, one of 8, 16, 32, 64
 //   out_d2, out_idx [batch, q_rows, k]
+//   rechecks        (knn_select_small_k only) an int64 counter on the
+//                   device that the small-k body adds its exact rechecks
+//                   to (knn_common.cuh), or null
 // knn_select_small_k takes 1 <= k, k - self_mode <= 16.
 int knn_select_small_k(const float* q, const float* r, int batch, int q_rows,
                        int r_rows, const int* nq, const int* nr, int nr_all,
                        int dp, int k, int self_mode, float* out_d2,
-                       int* out_idx, void* stream, int device) {
+                       int* out_idx, void* stream, int device,
+                       unsigned long long* rechecks) {
     return static_cast<int>(knn::run(padded_body(dp, false), q, r, batch,
                                      q_rows, r_rows, nq, nr, nr_all, k,
                                      self_mode, out_d2, out_idx, stream,
-                                     device));
+                                     device, rechecks));
 }
 
 // knn_select_large_k takes 1 <= k <= 256.
@@ -65,7 +69,7 @@ int knn_select_large_k(const float* q, const float* r, int batch, int q_rows,
     return static_cast<int>(knn::run(padded_body(dp, true), q, r, batch,
                                      q_rows, r_rows, nq, nr, nr_all, k,
                                      self_mode, out_d2, out_idx, stream,
-                                     device));
+                                     device, nullptr));
 }
 
 }  // extern "C"

@@ -68,16 +68,18 @@ extern "C" {
 //   nq, nr          int32 [batch] on the device, or null (q_rows; nr_all)
 //   d               the true width, 1 <= d <= 16
 //   out_d2, out_idx [batch, q_rows, k]
+//   rechecks        (knn_select_smalld_small_k only) as knn_select.cu's
 // knn_select_smalld_small_k takes 1 <= k, k - self_mode <= 16.
 int knn_select_smalld_small_k(const float* q, const float* r, int batch,
                               int q_rows, int r_rows, const int* nq,
                               const int* nr, int nr_all, int d, int k,
                               int self_mode, float* out_d2, int* out_idx,
-                              void* stream, int device) {
+                              void* stream, int device,
+                              unsigned long long* rechecks) {
     return static_cast<int>(knn::run(compact_body(d, false), q, r, batch,
                                      q_rows, r_rows, nq, nr, nr_all, k,
                                      self_mode, out_d2, out_idx, stream,
-                                     device));
+                                     device, rechecks));
 }
 
 // knn_select_smalld_large_k takes 1 <= k <= 256.
@@ -89,7 +91,7 @@ int knn_select_smalld_large_k(const float* q, const float* r, int batch,
     return static_cast<int>(knn::run(compact_body(d, true), q, r, batch,
                                      q_rows, r_rows, nq, nr, nr_all, k,
                                      self_mode, out_d2, out_idx, stream,
-                                     device));
+                                     device, nullptr));
 }
 
 }  // extern "C"

@@ -50,6 +50,11 @@ ENTRY_POINTS_EXTRA = ("knn_select_packed_small_k",
 # C entry points that take, after ``device``: low_bits, route, kp, warps,
 # row0, row1 and a workspace pointer (csrc/knn_wide.cu)
 ENTRY_POINTS_WIDE = ("knn_select_wide",)
+# the C entry points that run the small-k body: each takes, last, an int64
+# counter on the device that the body's screen adds its exact rechecks to,
+# or null (csrc/knn_common.cuh)
+ENTRY_POINTS_SMALL_K = ("knn_select_small_k", "knn_select_smalld_small_k",
+                        "knn_select_packed_small_k", "knn_select_prologue")
 # the source (csrc/<source>.cu) that defines each entry point
 ENTRY_SOURCES = {
     "knn_select_small_k": "knn_select",
@@ -174,7 +179,8 @@ def _declare(lib, source: str):
             if ENTRY_SOURCES[name] != source:
                 continue
             fn = getattr(lib, name)
-            fn.argtypes = argtypes
+            fn.argtypes = argtypes + ([ptr] if name in ENTRY_POINTS_SMALL_K
+                                      else [])
             fn.restype = i32
     lib.knn_error_string.argtypes = [i32]
     lib.knn_error_string.restype = ctypes.c_char_p

@@ -35,7 +35,11 @@ wrapper routes its inputs past the two bodies' limits (k >
 every shape the JAX package answers.  A wrapper given CPU
 tensors returns the plain version; given CUDA tensors it launches its
 kernel or raises.  Each wrapper counts its launches in
-``<wrapper>.launches``.
+``<wrapper>.launches``.  Under a span collector (``utils/spans.py``) a
+launch of the small-k body also hands the collector its selected query
+rows (count ``select_rows``) and a counter on the card that the body adds
+the pairs its screen passed to the exact recheck to (count
+``select_rechecks``, read once when the collector's block ends).
 
 Every selection centres the rows on the reference rows' masked mean in f32
 before it selects, unless it is given ``center=False``: then it takes the
@@ -57,6 +61,8 @@ from __future__ import annotations
 from typing import NamedTuple, Optional, Sequence, Tuple, Union
 
 import torch
+
+from ..utils.spans import count, device_count
 
 # limits of the two bodies of csrc/knn_common.cuh (knn_select.cu,
 # knn_smalld.cu, knn_packed.cu); past them the wrappers take knn_wide.cu
@@ -249,11 +255,13 @@ def _past_limits(d: int, k: int) -> bool:
 
 
 def _call(entry: str, q, r, d2, idx, *, batch, q_rows, r_rows, nq_dev,
-          nr_dev, nr_all, dp, k, self_mode, extra=()) -> None:
+          nr_dev, nr_all, dp, k, self_mode, extra=(), rows=0) -> None:
     """Call one C entry point of ``csrc/`` on the current stream (``dp``:
     the rows' width as laid out, padded or not; ``extra``: the arguments an
     entry point of ``ENTRY_POINTS_EXTRA`` or ``ENTRY_POINTS_WIDE`` takes
-    after ``device``); raises on a non-zero cudaError_t."""
+    after ``device``); raises on a non-zero cudaError_t.  An entry point of
+    ``ENTRY_POINTS_SMALL_K`` also gets ``_rechecks``' counter, with
+    ``rows`` the valid query rows it selects for."""
     from . import _build
     dev = q.device
     lib = _build.load_entry(entry)
@@ -261,9 +269,25 @@ def _call(entry: str, q, r, d2, idx, *, batch, q_rows, r_rows, nq_dev,
             None if nq_dev is None else nq_dev.data_ptr(),
             None if nr_dev is None else nr_dev.data_ptr(), nr_all, dp, k,
             int(self_mode), d2.data_ptr(), idx.data_ptr(),
-            torch.cuda.current_stream(dev).cuda_stream, dev.index or 0]
-    code = getattr(lib, entry)(*args, *extra)
+            torch.cuda.current_stream(dev).cuda_stream, dev.index or 0,
+            *extra]
+    if entry in _build.ENTRY_POINTS_SMALL_K:
+        counter = _rechecks(dev, rows)
+        args.append(None if counter is None else counter.data_ptr())
+    code = getattr(lib, entry)(*args)
     _build.check(lib, code, entry)
+
+
+def _rechecks(dev, rows: int):
+    """The counter a small-k launch adds its exact rechecks to under an
+    active span collector (``utils/spans.py``: read once, when the
+    collector's block ends, as the count ``select_rechecks``), with the
+    launch's ``rows`` counted as ``select_rows``; None with no
+    collector."""
+    counter = device_count("select_rechecks", dev)
+    if counter is not None:
+        count("select_rows", rows)
+    return counter
 
 
 def _centred(query, ref, nr, dp, self_mode, center):
@@ -323,7 +347,7 @@ def _launch(entry: str, query, ref, k, self_mode, nr, dp=None, extra=(),
         return d2, idx, False
     _call(entry, q, r, d2, idx, batch=1, q_rows=nq, r_rows=nr, nq_dev=None,
           nr_dev=None, nr_all=nr, dp=dp, k=k, self_mode=self_mode,
-          extra=extra)
+          extra=extra, rows=nq)
     return d2, idx, True
 
 
@@ -334,8 +358,9 @@ def knn_select_small_k(query: torch.Tensor, ref: torch.Tensor, k: int, *,
     """Small-k selection (k <= 16): the counterpart of the TPU kernel K1
     (``knn_select_pallas_packed2``).  The small-k body of
     ``csrc/knn_common.cuh``: each thread holds its query rows' sorted top-k
-    in registers, two threads share a query row, four tile rows are
-    screened by one compare; exact.  Rows wider than ``D_MAX`` take
+    in registers, two threads share a query row, a pair is screened by one
+    FMA a coordinate and only the pairs the screen passes are recomputed by
+    differences; exact.  Rows wider than ``D_MAX`` take
     ``knn_select_wide``."""
     _check_inputs(query, ref)
     if query.device.type == "cpu":
@@ -401,7 +426,7 @@ def _launch_batched(small_entry: str, large_entry: str, query, ref, k,
     entry = large_entry if k >= LARGE_K_FROM else small_entry
     _call(entry, q, r, d2, idx, batch=bsz, q_rows=nq_alloc, r_rows=nr_alloc,
           nq_dev=nq_dev, nr_dev=nr_dev, nr_all=nr_alloc, dp=dp, k=k,
-          self_mode=self_mode, extra=extra)
+          self_mode=self_mode, extra=extra, rows=sum(nq_b))
     return d2, idx, True
 
 
@@ -754,7 +779,7 @@ def knn_select_prologue(query: torch.Tensor, ref: torch.Tensor, k: int, *,
         return d2, idx
     _call("knn_select_prologue", q, r, d2, idx, batch=1, q_rows=nq,
           r_rows=nr_pad, nq_dev=None, nr_dev=None, nr_all=nr_pad, dp=dp, k=k,
-          self_mode=self_mode, extra=(PROLOGUE_CUTS[variant],))
+          self_mode=self_mode, extra=(PROLOGUE_CUTS[variant],), rows=nq)
     knn_select_prologue.launches += 1
     return d2, idx
 

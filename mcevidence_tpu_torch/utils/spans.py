@@ -10,6 +10,11 @@ entered inside another also hands each record to the one around it, so
 the caller of a driver that holds its own collector (the grid driver holds
 one for each dataset) sees the driver's spans too.  ``count(name)`` adds to
 ``timings[name]`` under the same collectors: counts keep their bare name.
+``device_count(name, device)`` gives a kernel an int64 counter on the card
+for the count ``name``: the collector reads it once, when its block ends
+(after the block's own last fetch, so the read waits for nothing new), and
+adds it as ``count(name, n)``; with no collector it gives None, and nothing
+is read.
 
 While a ``torch.profiler`` profile is on, a span is also a
 ``record_function("mce.<name>")``, a ``user_annotation`` on the profiler's
@@ -38,32 +43,56 @@ _ACTIVE = contextvars.ContextVar("mce_span_collector", default=None)
 
 
 class _Collector:
-    __slots__ = ("timings", "spans", "open", "outer")
+    __slots__ = ("timings", "spans", "open", "outer", "on_device")
 
     def __init__(self, timings: dict, spans: list, outer):
         self.timings = timings
         self.spans = spans
         self.open: list = []           # names of the spans entered, not left
         self.outer = outer             # the collector this one runs inside
+        self.on_device: dict = {}      # (name, device) -> int64 counter
 
 
 @contextmanager
 def collect(timings: dict, spans: list):
     """Record the spans run inside this block into ``timings`` and
-    ``spans``, and into the collectors around the block."""
-    token = _ACTIVE.set(_Collector(timings, spans, _ACTIVE.get()))
+    ``spans``, and into the collectors around the block; when the block
+    ends without an exception, read its ``device_count`` counters."""
+    col = _Collector(timings, spans, _ACTIVE.get())
+    token = _ACTIVE.set(col)
     try:
         yield
     finally:
         _ACTIVE.reset(token)
+    for (name, _), counter in col.on_device.items():
+        _add(col, name, int(counter.item()))
+
+
+def _add(col, name: str, n) -> None:
+    while col is not None:
+        col.timings[name] = col.timings.get(name, 0) + n
+        col = col.outer
 
 
 def count(name: str, n: int = 1) -> None:
     """Add ``n`` to ``timings[name]`` of the active collectors."""
+    _add(_ACTIVE.get(), name, n)
+
+
+def device_count(name: str, device):
+    """The active collector's int64 counter on ``device`` for the count
+    ``name`` (a 0-d tensor, made at its first use in the block), or None
+    with no collector."""
     col = _ACTIVE.get()
-    while col is not None:
-        col.timings[name] = col.timings.get(name, 0) + n
-        col = col.outer
+    if col is None:
+        return None
+    key = (name, str(device))
+    counter = col.on_device.get(key)
+    if counter is None:
+        import torch
+        counter = col.on_device[key] = torch.zeros((), dtype=torch.int64,
+                                                   device=device)
+    return counter
 
 
 class span:

@@ -696,6 +696,23 @@ def test_every_entry_point_maps_to_the_one_source_that_defines_it():
         assert defined[name] == [_build.ENTRY_SOURCES[name]]
 
 
+def test_the_small_k_entry_points_alone_take_the_rechecks_counter_last():
+    """``_build.ENTRY_POINTS_SMALL_K`` names exactly the C entry points
+    whose last parameter is the rechecks counter, so ``_declare`` and
+    ``knn_hopper._call`` pass it to those and to no others."""
+    import re
+    last = {}
+    for src in _build.sources():
+        with open(os.path.join(_build.CSRC, f"{src}.cu")) as fh:
+            for name, params in re.findall(r"^int (knn_\w+)\(([^)]*)\)",
+                                           fh.read(), re.M):
+                last[name] = params.split(",")[-1].split()
+    assert set(_build.ENTRY_POINTS_SMALL_K) <= set(last)
+    for name, param in last.items():
+        takes = param == ["unsigned", "long", "long*", "rechecks"]
+        assert takes == (name in _build.ENTRY_POINTS_SMALL_K), name
+
+
 def test_a_failed_source_leaves_the_others_loadable(monkeypatch, tmp_path):
     """knn_wide.cu fails to build: its entry points raise with nvcc's
     output, and the other sources still build and load."""

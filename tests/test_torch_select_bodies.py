@@ -1,5 +1,5 @@
 """The selection bodies at their edges: the large-k body's warp-queue
-boundaries and ties, the small-k body's rows per thread and tiles.
+boundaries and ties, the small-k body's rows per thread, tiles and screen.
 
 On the CPU the plain version (``knn_select_torch``) is held to the JAX
 package's exact selection, ``knn_select_xla``, at k = 33, 65 and 129 (one
@@ -9,7 +9,11 @@ comparison is ``assert_same_selection``'s: identical absent and self slots,
 and the d2 at the returned indices within 2^-10.  The tests marked ``cuda``
 hold the hand-written bodies (``csrc/knn_common.cuh``) to the plain version
 on the card in the ``Padded``, ``Compact`` and batched forms; where every row
-is one point they also require the exact tie order.
+is one point they also require the exact tie order.  On the screen's
+adversarial cases (``test_torch_select_screen.py``), grown past one step of
+2 x 128 rows, the small-k body must return the float32 emulation's
+selection bit for bit (ties by the smaller index) in every form: ``Padded``,
+``Compact``, batched, ``TruncKey<11/12>`` and the prologue cut.
 """
 
 import itertools
@@ -22,6 +26,8 @@ import jax.numpy as jnp
 from mcevidence_tpu.ops.knn import knn_select_xla
 from mcevidence_tpu_torch.ops import knn_hopper as kh
 from test_torch_knn import assert_same_selection
+from test_torch_select_screen import CASES as SCREEN_CASES
+from test_torch_select_screen import case_inputs, select_exact
 
 WARP_QUEUE_KS = (31, 32, 33, 63, 64, 65, 128, 129, 255, 256)
 
@@ -201,3 +207,89 @@ def test_batched_bodies_match_plain_on_card(one_point, k, self_mode,
                 np.testing.assert_array_equal(
                     got[1][b, :nq[b]],
                     tie_order(nq[b], got[1].shape[2], nr[b], self_mode))
+
+
+def _grown(case, width):
+    """A screen case with its reference rows grown past one step of the
+    small-k body (kSplit x kTile = 256 rows): reversed copies (more ties)
+    and a half-scale copy."""
+    q, r = case_inputs(case, width)
+    r = np.concatenate([r, r[::-1], r * np.float32(0.5)])
+    return q, np.ascontiguousarray(r)
+
+
+def _same_bits(got, want):
+    """(d2, idx) on the card against the emulation's: d2 bit for bit (any
+    NaN against a NaN), idx exactly."""
+    d2, idx = (t.cpu().numpy() for t in got)
+    nan = np.isnan(want[0])
+    np.testing.assert_array_equal(np.isnan(d2), nan)
+    np.testing.assert_array_equal(d2.view(np.uint32)[~nan],
+                                  want[0].view(np.uint32)[~nan])
+    np.testing.assert_array_equal(idx, want[1])
+
+
+SCREEN_FORMS = ("padded", "compact", "batched", "trunc11", "trunc12")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("form", SCREEN_FORMS)
+@pytest.mark.parametrize("case", SCREEN_CASES)
+def test_small_k_screen_keeps_the_bits_on_card(case, form, cuda_device):
+    low_bits = int(form[5:]) if form.startswith("trunc") else 0
+    for width, (self_mode, k) in itertools.product(
+            (8, 16), ((True, 9), (False, 9), (False, 13), (True, 16))):
+        q, r = _grown(case, width)
+        if self_mode:
+            q = r
+        rt = torch.from_numpy(r).to(cuda_device)
+        qt = rt if self_mode else torch.from_numpy(q).to(cuda_device)
+        if form == "batched":
+            nr = [len(r), len(r) - 37]
+            nq = nr if self_mode else [len(q), len(q) - 5]
+            qb = torch.stack([qt, qt.flip(0)])
+            rb = qb if self_mode else torch.stack([rt, rt.flip(0)])
+            got = kh.knn_select_batched(qb, rb, k, self_mode=self_mode,
+                                        nr=nr, nq=nq, center=False)
+            for b, (qm, rm) in enumerate(((q, r), (q[::-1], r[::-1]))):
+                want = select_exact(np.ascontiguousarray(qm[:nq[b]]),
+                                    np.ascontiguousarray(rm), k, self_mode,
+                                    nr=nr[b], nan_bits=0x7FFFFFFF)
+                _same_bits((got[0][b, :nq[b]], got[1][b, :nq[b]]), want)
+                assert (got[1][b, nq[b]:] == -1).all()
+            continue
+        if form == "compact":
+            got = kh.knn_select_smalld(qt, rt, k, self_mode=self_mode,
+                                       center=False)
+        elif low_bits:
+            got = kh.knn_select_packed(qt, rt, k, self_mode=self_mode,
+                                       low_bits=low_bits, center=False)
+        else:      # k = 16 in self mode: 16 keys a row, one row a thread
+            got = kh.knn_select_small_k(qt, rt, k, self_mode=self_mode,
+                                        center=False)
+        _same_bits(got, select_exact(q, r, k, self_mode, low_bits,
+                                     nan_bits=0x7FFFFFFF))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("variant", ["B", "BC"])
+@pytest.mark.parametrize("width", [8, 16])
+def test_small_k_screen_keeps_the_bits_under_the_prologue_cut(
+        width, variant, cuda_device):
+    """The prologue cut's sentinel rows (1e18) pad copies of the lattice
+    case, whose masked mean the card computes exactly (small integers over
+    a whole lattice), to a multiple of 128 rows."""
+    _, lattice = case_inputs("lattice", width)
+    inner = lattice[((lattice[:, :4] == 1) | (lattice[:, :4] == 2)).all(1)]
+    r = np.concatenate([lattice, lattice, inner])
+    n = len(r)
+    mu = r.astype(np.float64).mean(0)
+    assert np.array_equal(mu, mu.astype(np.float32)) and n % 128
+    pad = -(-n // 128) * 128
+    centred = np.concatenate([r - mu.astype(np.float32), np.full(
+        (pad - n, width), 1e18, np.float32)]).astype(np.float32)
+    rt = torch.from_numpy(r).to(cuda_device)
+    for k in (5, 9, 14):
+        got = kh.knn_select_prologue(rt, rt, k, variant=variant)
+        _same_bits(got, select_exact(centred[:n], centred, k, True, 12,
+                                     cut=True))

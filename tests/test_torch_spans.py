@@ -261,6 +261,32 @@ def test_a_span_records_only_into_its_own_threads_collector():
     assert set(timings) == {"evidence_s"}
 
 
+def test_a_device_count_is_read_once_when_its_block_ends():
+    """A kernel's counter (here on the CPU) is handed out once a block and
+    name, and read into the collector and those around it when the block
+    ends; with no collector there is none, and a block that raises reads
+    nothing."""
+    assert spans_mod.device_count("select_rechecks", "cpu") is None
+    outer, inner = {}, {}
+    with collect(outer, []):
+        with collect(inner, []):
+            c = spans_mod.device_count("select_rechecks", "cpu")
+            assert c is spans_mod.device_count("select_rechecks", "cpu")
+            c += 40
+            c += 2
+            assert "select_rechecks" not in inner
+        assert inner == {"select_rechecks": 42}
+        assert outer == {"select_rechecks": 42}
+        spans_mod.device_count("select_rechecks", "cpu").add_(8)
+    assert outer == {"select_rechecks": 50}
+    failed = {}
+    with pytest.raises(ValueError):
+        with collect(failed, []):
+            spans_mod.device_count("select_rechecks", "cpu").add_(1)
+            raise ValueError
+    assert failed == {}
+
+
 def test_a_span_without_a_collector_records_nothing():
     with span("select") as s:
         pass
