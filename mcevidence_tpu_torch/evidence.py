@@ -37,7 +37,7 @@ from .ops.whiten import WhitenStats, apply_whiten, whiten_stats
 from .utils.batch import BatchPlan, make_batch_plan
 from .utils.device import resolve_device
 from .utils.logging import configure, verbosity_to_level
-from .utils.spans import collect, span
+from .utils.spans import collect, count, span
 
 logger = logging.getLogger(__name__)
 
@@ -112,6 +112,7 @@ def evidence_fn(samples: np.ndarray,
             "whitening or prewhiten=False (per-partition stats are "
             "host-side); falling back to precision='refine' — timings will "
             "be refine-path timings")
+        count("device_fallbacks")
 
     if prewhiten:
         if covtype == "all":
@@ -404,6 +405,7 @@ class MCEvidence:
                 "precision='device' unsupported for this request (batched "
                 "brange, prewhiten=False, or cross + covtype='single'); "
                 "falling back to precision='refine'")
+            count("device_fallbacks")
 
         # the fused f32 pipeline for the common fast-mode case: one batch
         # covering the whole chain, auto mode (covtype 'all' and 'single'

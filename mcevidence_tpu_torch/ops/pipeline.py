@@ -14,16 +14,19 @@ The card computes in native float64, so the JAX package's double-float
 pairs (``ops/dfloat.py``), its XLA:CPU O0 recompilation and its host staging
 pools have no counterpart here.  It agrees with the refine path to ~1e-13 in
 ln Z.  Three fallbacks route to the host-refine path (host whitening; the
-selection and the f64 refine still run on the card), each logged: ndim >
-``DEVICE_NDIM_MAX``, a device-memory plan over the budget, and a
-non-finite sum; thin candidate margins retry once with ``4*pad+8``
-candidates, from the first pass's uploads.  A pass is
-``device_refine_launch`` and, after the fetch, ``device_refine_finish``
-(the grid launches all cells first).  Spans (``utils/spans.py``):
-``device_prep`` (the host f64 prep), ``upload`` (the copies to the card),
-``device_run`` (the launches and the wait for the scalars) and
-``reselect`` (the thin-margin re-run, around its own ``device_run``); the
-count ``thin_rows`` (the first pass's thin rows).
+selection and the f64 refine still run on the card), each logged with its
+cause and counted as ``device_fallbacks``: ndim past the kernels' widest
+layout (``knn_hopper.D_MAX``), a device-memory plan over the budget, and
+a non-finite sum; thin candidate margins retry once with ``4*pad+8``
+candidates, from the first pass's uploads (count ``device_reruns``).  A
+pass is ``device_refine_launch`` and, after the fetch,
+``device_refine_finish`` (the grid launches all cells first).  Spans
+(``utils/spans.py``): ``device_prep`` (the host f64 prep), ``upload``
+(the copies to the card), ``device_run`` (the launches and the wait for
+the scalars) and ``reselect`` (the thin-margin re-run, around its own
+``device_run``); the counts ``thin_rows`` (the first pass's thin rows),
+``device_reruns`` and ``device_fallbacks`` (both counted at 0 on entry,
+so that an estimate with none shows them).
 
 One ``fast`` estimate (``fast_auto_evidence``, ``fused_auto_evidence``)
 runs all in f32: host f64 centring -> upload -> masked-moment whitening,
@@ -49,14 +52,10 @@ from ..utils.spans import count, span
 from .estimator import (log_ball_volume_const, log_evidence_from_knn,
                         log_evidence_from_knn_np)
 from .knn import exact_knn, refine_chunk_rows, refined_d2_chunks, selector
-from .knn_hopper import _padded_width
+from .knn_hopper import D_MAX, _padded_width
 from .whiten import apply_whiten, whiten_masked, whiten_stats
 
 logger = logging.getLogger(__name__)
-
-# widest chain the device path takes (the JAX package's widest coordinate
-# class, ring.GRID_DPAD_CLASSES); wider chains take the host-refine path
-DEVICE_NDIM_MAX = 16
 
 # share of the card's free memory the plan may take when no budget is set
 _FREE_MEMORY_SHARE = 0.8
@@ -130,11 +129,12 @@ def estimate_device_refine_bytes(n: int, n_ref: int, ndim: int, k_sel: int,
                                  cross: bool = False) -> int:
     """Device memory one device-refine estimate plans for, in bytes.
 
-    The f64 coordinates and their f32 copy (the kernel wrapper's copy is
-    padded to 8 or 16 columns), the selection's d2 and indices, the f64
-    vectors, and ONE chunk of the candidate refinement: the f64 gather is
-    chunked over query rows (``refine_chunk_rows``), so it does not set
-    the N ceiling.  ``cross`` must mirror the dispatch (``samples2`` given):
+    The f64 coordinates, their f32 cast and the kernel wrapper's f32 copy
+    padded to ``_padded_width(ndim)`` columns (8, 16, 32 or 64; ndim <=
+    ``D_MAX``), the selection's d2 and indices, the f64 vectors, and ONE
+    chunk of the candidate refinement: the f64 gather is chunked over
+    query rows (``refine_chunk_rows``), so it does not set the N
+    ceiling.  ``cross`` must mirror the dispatch (``samples2`` given):
     a second chain gets coordinates of its own even at an equal row
     count."""
     rows = n + (n_ref if cross else 0)
@@ -430,20 +430,30 @@ def device_refine_evidence(samples: np.ndarray, lnlike: np.ndarray,
     ``samples`` searched in ``samples2``).  A thin pass (some row's
     kmax-th candidate within the selection's noise of the last) counts
     its rows as ``thin_rows`` and runs once more with 4*pad+8 candidates,
-    under the ``reselect`` span, from the first pass's uploads: the host
-    prep and the upload run once."""
+    under the ``reselect`` span, from the first pass's uploads (count
+    ``device_reruns``): the host prep and the upload run once.  An estimate
+    handed to ``host_refine_evidence`` (ndim > ``D_MAX``, a plan over the
+    budget, a non-finite sum) counts ``device_fallbacks``."""
     kmax = max(2, kmax)
     samples = np.asarray(samples, np.float64)
     n, ndim = samples.shape
     n_ref = (samples if samples2 is None else samples2).shape[0]
-    fallback = dict(samples2=samples2, kmax=kmax, prior_volume=prior_volume,
-                    sum_adjusted_weights=sum_adjusted_weights, engine=engine,
-                    device=device)
-    if ndim > DEVICE_NDIM_MAX:
-        logger.info("device-refine: ndim %d > %d (device layout limit); "
-                    "falling back to the host refine path",
-                    ndim, DEVICE_NDIM_MAX)
-        return host_refine_evidence(samples, lnlike, weights, **fallback)
+    count("device_fallbacks", 0)
+    count("device_reruns", 0)
+
+    def fallback(cause, level=logging.WARNING):
+        logger.log(level, "device-refine: %s; falling back to the host "
+                   "refine path", cause)
+        count("device_fallbacks")
+        return host_refine_evidence(
+            samples, lnlike, weights, samples2=samples2, kmax=kmax,
+            prior_volume=prior_volume,
+            sum_adjusted_weights=sum_adjusted_weights, engine=engine,
+            device=device)
+
+    if ndim > D_MAX:
+        return fallback(f"ndim {ndim} > {D_MAX} (the kernels' widest "
+                        f"layout)", logging.INFO)
     dev = resolve_device(device)
     t = None
     with ExitStack() as retry:
@@ -453,11 +463,10 @@ def device_refine_evidence(samples: np.ndarray, lnlike: np.ndarray,
                                                cross=samples2 is not None)
             budget = device_budget_bytes(dev)
             if budget is not None and est > budget:
-                logger.warning(
-                    "device-refine: planned HBM %.3f GiB (N=%d, k_sel=%d) "
-                    "exceeds the %.3f GiB budget; falling back to the host "
-                    "refine path (set MCE_DEVICE_HBM_BUDGET_GB to change the "
-                    "budget)", est / 2 ** 30, n, k_sel, budget / 2 ** 30)
+                cause = (f"planned HBM {est / 2 ** 30:.3f} GiB (N={n}, "
+                         f"k_sel={k_sel}) exceeds the {budget / 2 ** 30:.3f} "
+                         f"GiB budget (set MCE_DEVICE_HBM_BUDGET_GB to change "
+                         f"the budget)")
                 break
             if t is None:
                 t, plan = _device_refine_prepare(
@@ -474,17 +483,18 @@ def device_refine_evidence(samples: np.ndarray, lnlike: np.ndarray,
             if row is NONFINITE:
                 # (d2*inv_s2)^(ndim/2)*scal left f64 range (far outlier
                 # rows): the log-space host path has unlimited range
-                logger.warning("device-refine: non-finite sum; falling back "
-                               "to the host refine path")
+                cause = "non-finite sum"
                 break
             if row is not THIN:
                 return row
             count("thin_rows", int(flat[-1]))
+            count("device_reruns")
             logger.info("device-refine: thin margins on %d rows; re-running "
                         "with %d extra candidates", int(flat[-1]),
                         4 * pad + 8)
             retry.enter_context(span("reselect"))
-        return host_refine_evidence(samples, lnlike, weights, **fallback)
+        # a fallback after a thin first pass runs inside ``reselect``
+        return fallback(cause)
 
 
 def device_refine_auto_evidence(samples, lnlike, weights=None, **kw):

@@ -61,10 +61,10 @@ import torch.distributed as dist
 from ..ops.estimator import (log_ball_volume_const, log_evidence_from_knn,
                              log_evidence_from_knn_np)
 from ..ops.knn import center_f64, guarded_refine_knn_f64, selector
-from ..ops.pipeline import (DEVICE_NDIM_MAX, NONFINITE, THIN,
-                            _device_refine_prepare, device_refine_finish,
-                            fused_refine_dotp, fused_refine_dotp_batch,
-                            host_refine_evidence)
+from ..ops.knn_hopper import D_MAX
+from ..ops.pipeline import (NONFINITE, THIN, _device_refine_prepare,
+                            device_refine_finish, fused_refine_dotp,
+                            fused_refine_dotp_batch, host_refine_evidence)
 from ..ops.whiten import (_whiten_from_cov, apply_whiten, whiten_masked,
                           whiten_stats)
 from ..utils.device import resolve_device
@@ -697,9 +697,9 @@ def sharded_device_refine_evidence(samples: np.ndarray, lnlike: np.ndarray,
     coordinates on every rank's card, each rank's shard of the query rows
     selected, refined and reduced there, the partials gathered and
     combined in host f64.  Returns k = 1..kmax-1 on every rank; auto mode,
-    or cross when ``samples2`` is given.  ndim > ``DEVICE_NDIM_MAX`` and a
-    non-finite sum take the ring's refine path; thin margins retry with
-    4 pad + 8 candidates, as in JAX."""
+    or cross when ``samples2`` is given.  ndim > ``D_MAX`` (the kernels'
+    widest layout) and a non-finite sum take the ring's refine path; thin
+    margins retry with 4 pad + 8 candidates, as in JAX."""
     kmax = max(2, kmax)
     samples = np.asarray(samples, np.float64)
     ring = ring_group(group)
@@ -714,10 +714,9 @@ def sharded_device_refine_evidence(samples: np.ndarray, lnlike: np.ndarray,
         return sharded_cross_evidence(samples, lnlike, samples2, weights,
                                       **kw)
 
-    if samples.shape[1] > DEVICE_NDIM_MAX:
+    if samples.shape[1] > D_MAX:
         logger.info("sharded device-refine: ndim %d > %d; falling back to "
-                    "the sharded refine path", samples.shape[1],
-                    DEVICE_NDIM_MAX)
+                    "the sharded refine path", samples.shape[1], D_MAX)
         return refine()
     dev = rank_device(device)
     t, host = _device_refine_prepare(samples, lnlike, weights, kmax,

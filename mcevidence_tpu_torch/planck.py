@@ -370,22 +370,33 @@ def _dataset_cells_batched(path_list, names, chain_exts, *, kmax,
         logger.info("batched cross-evidence runs on the refine path")
         precision = "refine"
 
-    # chains wider than the device path takes (rare: --allparams on a
-    # many-nuisance model) take the host refine path per cell
-    from .ops.pipeline import DEVICE_NDIM_MAX
-    wide = [c for c in cells if c.ndim > DEVICE_NDIM_MAX]
+    # chains wider than the batched programs' widest class (--allparams on
+    # a many-nuisance model) go one by one: at device through the
+    # single-chain device path (which takes up to knn_hopper.D_MAX
+    # columns), else through the host refine path
+    from .parallel.ring import GRID_DPAD
+    wide = [c for c in cells if c.ndim > GRID_DPAD]
     if wide:
         from .evidence import evidence_fn
-        logger.info("%d cell(s) with ndim > %d take the host refine path",
-                    len(wide), DEVICE_NDIM_MAX)
-        cells = [c for c in cells if c.ndim <= DEVICE_NDIM_MAX]
+        from .ops.pipeline import device_refine_evidence
+        logger.info("%d cell(s) with ndim > %d run one by one on the %s "
+                    "path", len(wide), GRID_DPAD,
+                    "single-chain device" if precision == "device"
+                    else "host refine")
+        cells = [c for c in cells if c.ndim <= GRID_DPAD]
         for c in wide:
+            one = dict(samples2=c.samples2, kmax=kmax,
+                       prior_volume=c.prior_volume,
+                       sum_adjusted_weights=c.sumw_adj, engine=engine,
+                       device=device)
             with span("grid_launch"):
-                mce[c.imm, c.icc, :] = evidence_fn(
-                    c.samples, c.lnl, weights=c.weights, samples2=c.samples2,
-                    kmax=kmax, prior_volume=c.prior_volume,
-                    sum_adjusted_weights=c.sumw_adj, precision="refine",
-                    engine=engine, device=device)
+                if precision == "device":
+                    row = device_refine_evidence(c.samples, c.lnl, c.weights,
+                                                 **one)
+                else:
+                    row = evidence_fn(c.samples, c.lnl, weights=c.weights,
+                                      precision="refine", **one)
+            mce[c.imm, c.icc, :] = row
 
     kw = dict(kmax=kmax, cross=cross, engine=engine, device=device)
     if precision == "device":

@@ -124,3 +124,25 @@ def test_thin_rows_rerun_on_the_card_from_the_first_uploads(cuda_device):
         wait=True)
     fresh = pipeline.device_refine_finish(flat, plan, last=True)
     np.testing.assert_allclose(got, fresh, rtol=0, atol=1e-12)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("ndim", [26, 64, 65])
+def test_wide_chains_take_the_device_path_on_the_card(ndim, cuda_device):
+    """Up to the kernels' 64 columns the device precision runs on the card
+    (the ``Padded<32>`` and ``<64>`` selections, then the f64 refine and
+    reduction) and counts no fallback; 65 columns fall back, counted.
+    Either way it agrees with the refine precision on the card."""
+    rng = np.random.default_rng(ndim)
+    theta = rng.standard_normal((16384, ndim)) @ (
+        np.eye(ndim) + 0.1 * rng.standard_normal((ndim, ndim)))
+    lnl = -0.5 * np.sum(theta * theta, axis=1)
+    chain = {"samples": theta, "loglikes": lnl}
+    mce = MCEvidence(chain, kmax=2, precision="device", device=cuda_device,
+                     verbose=0)
+    got = mce.evidence()
+    assert mce.timings["device_fallbacks"] == (ndim > 64)
+    assert ("device_run_s" in mce.timings) == (ndim <= 64)
+    ref = MCEvidence(chain, kmax=2, precision="refine", device=cuda_device,
+                     verbose=0).evidence()
+    np.testing.assert_allclose(got, ref, rtol=0, atol=1e-9)

@@ -77,6 +77,9 @@ def _case(name):
     if name == "ndim_above_16":
         th, ll = _chain(3, n=500, ndim=18)
         return th, ll, {"kmax": 3}
+    if name == "ndim_above_64":
+        th, ll = _chain(3, n=500, ndim=65)
+        return th, ll, {"kmax": 3}
     if name == "lattice_retry":
         return (*_lattice(), {"kmax": 2})
     if name == "sum_adjusted_weights":
@@ -85,7 +88,8 @@ def _case(name):
 
 
 CASES = ["auto", "cross", "weights", "offset", "duplicates", "n_below_kmax",
-         "ndim_above_16", "lattice_retry", "sum_adjusted_weights"]
+         "ndim_above_16", "ndim_above_64", "lattice_retry",
+         "sum_adjusted_weights"]
 
 
 @pytest.mark.parametrize("case", CASES)
@@ -106,7 +110,12 @@ def test_device_precision_matches_reference(case, caplog):
     if case == "n_below_kmax":
         assert np.isnan(got[2:]).all() and np.isfinite(got[:2]).all()
     if case == "ndim_above_16":
-        assert any("ndim 18 > 16" in m for m in messages)
+        # the JAX package's widest class is 16; the port's device path
+        # takes up to the kernels' 64 columns
+        assert not any("falling back" in m for m in messages)
+    if case == "ndim_above_64":
+        assert any("ndim 65 > 64" in m and "falling back" in m
+                   for m in messages)
     if case == "lattice_retry":
         assert any("re-running with 24 extra candidates" in m
                    for m in messages)

@@ -290,31 +290,96 @@ def test_cuda_without_a_card_fails(minigrid, tmp_path, capsys, monkeypatch):
         planck.dataset_evidence(minigrid, DS, verbose=0)
 
 
-def test_wide_cells_take_the_host_refine_path(tmp_path, caplog):
-    rng = np.random.default_rng(5)
-    for model, ndim in [("base", 4), ("base_w", 18)]:
-        d = tmp_path / model / DS
+def _wide_grid(root, models, rng):
+    """A dataset of ``models`` ((name, ndim) pairs) under ``root``: ndim 5
+    as ``_write_chain`` writes it, wider ones Gaussian chains whose
+    .ranges names ndim parameters (the registry's cosmological names, then
+    ``nuis<i>``, which the caller registers as cosmological)."""
+    names = list(COSMO_PARAMS) + [f"nuis{i}" for i in range(64)]
+    for model, ndim in models:
+        d = root / model / DS
         d.mkdir(parents=True)
-        root = str(d / f"{model}_{DS}")
-        _write_chain(root, rng, 5, n=400, h0=False)
+        stem = str(d / f"{model}_{DS}")
+        _write_chain(stem, rng, 5, n=400, h0=False)
         if ndim > 5:
-            # an 18-parameter chain whose .ranges names 18 cosmological ones
             theta = rng.normal(1.0, 0.05, size=(400, ndim))
             neglnl = 0.5 * np.sum(((theta - 1.0) / 0.05) ** 2, axis=1)
             for c in (1, 2):
-                np.savetxt(f"{root}_{c}.txt", np.column_stack(
+                np.savetxt(f"{stem}_{c}.txt", np.column_stack(
                     [np.ones(400), neglnl, theta]))
-            with open(root + ".ranges", "w") as fh:
-                fh.writelines(f"{nm} 0 2\n" for nm in COSMO_PARAMS[:ndim])
+            with open(stem + ".ranges", "w") as fh:
+                fh.writelines(f"{nm} 0 2\n" for nm in names[:ndim])
+    return names[len(COSMO_PARAMS):]
+
+
+def test_wide_cells_take_the_host_refine_path(tmp_path, caplog):
+    """A 65-parameter cell, one past the kernels' widest layout, runs one by
+    one and falls back from the device path to the host refine path."""
+    from mcevidence_tpu import registry as jax_registry
+    from mcevidence_tpu_torch import registry
+    nuis = _wide_grid(tmp_path, [("base", 4), ("base_w", 65)],
+                      np.random.default_rng(5))
     kw = dict(kmax=2, verbose=0, batch_cells=True, precision="device")
-    with caplog.at_level(logging.INFO, logger="mcevidence_tpu_torch.planck"):
-        got = planck.dataset_evidence(str(tmp_path), DS, device="cpu", **kw)
-    assert any("ndim > 16 take the host refine path" in r.getMessage()
-               for r in caplog.records)
-    want = jax_planck.dataset_evidence(str(tmp_path), DS, engine="xla",
-                                       **kw)
-    assert list(got["ndim"]) == [5, 18]
+    registry.extend_cosmo_params(nuis)
+    jax_registry.extend_cosmo_params(nuis)
+    try:
+        with caplog.at_level(logging.INFO,
+                             logger="mcevidence_tpu_torch.planck"), \
+                caplog.at_level(logging.INFO,
+                                logger="mcevidence_tpu_torch.ops.pipeline"):
+            got = planck.dataset_evidence(str(tmp_path), DS, device="cpu",
+                                          **kw)
+        want = jax_planck.dataset_evidence(str(tmp_path), DS, engine="xla",
+                                           **kw)
+    finally:
+        registry.reset_cosmo_params()
+        jax_registry.reset_cosmo_params()
+    messages = [r.getMessage() for r in caplog.records]
+    assert any("1 cell(s) with ndim > 16 run one by one" in m
+               for m in messages)
+    assert sum("ndim 65 > 64" in m and "host refine path" in m
+               for m in messages) == 1
+    assert list(got["ndim"]) == [5, 65]
     assert_same_table(got, want)
+
+
+def test_a_wide_cell_at_device_runs_the_single_chain_device_path(
+        tmp_path, monkeypatch):
+    """A 20-parameter cell at device precision runs
+    ``device_refine_evidence`` on its own; the table is the JAX package's
+    device table of the same grid, its cells equal refine's within 1e-6,
+    and the batched model's cells are those of a grid without it."""
+    from mcevidence_tpu_torch.ops import pipeline
+    rng = np.random.default_rng(6)
+    _wide_grid(tmp_path / "wide", [("base", 4), ("base_w", 20)], rng)
+    _wide_grid(tmp_path / "narrow", [("base", 4)],
+               np.random.default_rng(6))
+    widths = []
+    orig = pipeline.device_refine_evidence
+
+    def recorded(samples, *a, **k):
+        widths.append(np.shape(samples)[1])
+        return orig(samples, *a, **k)
+    monkeypatch.setattr(pipeline, "device_refine_evidence", recorded)
+    kw = dict(kmax=3, verbose=0, batch_cells=True, device="cpu")
+    got = planck.dataset_evidence(str(tmp_path / "wide"), DS,
+                                  precision="device", **kw)
+    assert widths == [20]
+    want = jax_planck.dataset_evidence(
+        str(tmp_path / "wide"), DS, engine="xla", precision="device",
+        **{k: v for k, v in kw.items() if k != "device"})
+    assert_same_table(got, want)
+    refine = planck.dataset_evidence(str(tmp_path / "wide"), DS,
+                                     precision="refine", **kw)
+    narrow = planck.dataset_evidence(str(tmp_path / "narrow"), DS,
+                                     precision="device", **kw)
+    assert list(got["ndim"]) == [5, 20]
+    lnz = [c for c in got.columns if c not in INFO]
+    np.testing.assert_allclose(got[lnz].to_numpy(float),
+                               refine[lnz].to_numpy(float), rtol=0,
+                               atol=1e-6)
+    np.testing.assert_array_equal(got[lnz].to_numpy(float)[:1],
+                                  narrow[lnz].to_numpy(float))
 
 
 def test_grid_driver_imports_without_jax_and_fills_without_pandas(minigrid):

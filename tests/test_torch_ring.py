@@ -335,8 +335,9 @@ def test_sharded_fast_small_n_returns_nan_not_inf(rng, pool):
 
 
 def test_sharded_device_refine_wide_ndim_falls_back(rng, pool):
-    """ndim > DEVICE_NDIM_MAX takes the ring's refine path."""
-    th = rng.normal(size=(400, 17))
+    """ndim > D_MAX (65 columns, one past the kernels' widest layout)
+    takes the ring's refine path."""
+    th = rng.normal(size=(400, 65))
     lnl = -0.5 * np.sum(th * th, axis=1)
     got = pool.run(ranks.call_logging, ring.sharded_device_refine_evidence,
                    th, lnl, kmax=2, device="cpu")

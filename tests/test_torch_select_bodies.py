@@ -272,6 +272,44 @@ def test_small_k_screen_keeps_the_bits_on_card(case, form, cuda_device):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("form", ["padded", "trunc11", "trunc12"])
+@pytest.mark.parametrize("case", SCREEN_CASES)
+def test_small_k_screen_keeps_the_bits_at_wide_layouts_on_card(
+        case, form, cuda_device):
+    """The small-k body on ``Padded<32>`` and ``<64>``, whose screen has the
+    wider slack (W + 2) 2^-19, against the emulation bit for bit."""
+    low_bits = int(form[5:]) if form.startswith("trunc") else 0
+    for width, (self_mode, k) in itertools.product(
+            (32, 64), ((True, 6), (False, 9), (True, 16))):
+        q, r = _grown(case, width)
+        if self_mode:
+            q = r
+        rt = torch.from_numpy(r).to(cuda_device)
+        qt = rt if self_mode else torch.from_numpy(q).to(cuda_device)
+        if low_bits:
+            got = kh.knn_select_packed(qt, rt, k, self_mode=self_mode,
+                                       low_bits=low_bits, center=False)
+        else:
+            got = kh.knn_select_small_k(qt, rt, k, self_mode=self_mode,
+                                        center=False)
+        _same_bits(got, select_exact(q, r, k, self_mode, low_bits,
+                                     nan_bits=0x7FFFFFFF))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("self_mode", [True, False], ids=["self", "cross"])
+@pytest.mark.parametrize("k", [2, 6, 9, 16, 26])
+@pytest.mark.parametrize("d", [17, 26, 32, 33, 64])
+def test_wide_padded_bodies_match_plain_on_card(d, k, self_mode,
+                                                cuda_device):
+    """The widths the device path now takes past 16 columns, padded to 32
+    or 64: 5993 rows, both bodies (k = 26 takes the large-k one)."""
+    query, ref, q, r = _card_inputs(5993, d, self_mode, False, cuda_device)
+    got = kh.knn_select_cuda(q, r, k, self_mode=self_mode)
+    _check(query, ref, q, r, k, self_mode, None, got, False)
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("variant", ["B", "BC"])
 @pytest.mark.parametrize("width", [8, 16])
 def test_small_k_screen_keeps_the_bits_under_the_prologue_cut(

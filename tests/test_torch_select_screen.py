@@ -218,7 +218,7 @@ KEYS = {"exact": 0, "trunc11": 11, "trunc12": 12}
 
 
 @pytest.mark.parametrize("key", sorted(KEYS))
-@pytest.mark.parametrize("width", [8, 16])
+@pytest.mark.parametrize("width", [8, 16, 32, 64])
 @pytest.mark.parametrize("case", CASES)
 def test_screen_passes_every_pair_that_beats_its_key(case, width, key):
     """Every pair scores at least the floor of the worst key it beats: its

@@ -39,7 +39,8 @@ KEYS = {
     "refine": {"ingest_s", "evidence_s", "whiten_s", "knn_s", "estimator_s",
                "host_prep_s", "upload_s", "select_s", "host_refine_s"},
     "device": {"ingest_s", "evidence_s", "fused_s", "device_prep_s",
-               "upload_s", "device_run_s"},
+               "upload_s", "device_run_s", "device_fallbacks",
+               "device_reruns"},
     "fast": {"ingest_s", "evidence_s", "fused_s"},
 }
 # the steps that split each precision's layer span, disjoint inside it

@@ -165,3 +165,25 @@ def test_the_lattice_reruns_the_whole_chain_from_its_uploads(caplog):
     names = [s[0] for s in mce.spans]
     assert names.count("device_prep") == names.count("upload") == 1
     assert names.count("device_run") == 2
+
+
+def test_a_fallback_after_a_thin_pass_runs_under_reselect(monkeypatch):
+    """A retry over the budget hands the estimate to the host refine path
+    from inside the ``reselect`` span, so ``reselect_ms`` counts it: the
+    fallback's first span has ``reselect`` as its parent, and the counts
+    name one re-run and one fallback."""
+    samples, lnl, _ = _planted()
+    n, ndim = samples.shape
+    first, retry = (pipeline.estimate_device_refine_bytes(n, n, ndim,
+                                                          KMAX + pad)
+                    for pad in (4, 24))
+    monkeypatch.setattr(pipeline, "device_budget_bytes",
+                        lambda dev: (first + retry) // 2)
+    mce = MCEvidence({"samples": samples, "loglikes": lnl}, kmax=KMAX,
+                     precision="device", device="cpu", verbose=0)
+    mce.evidence()
+    assert mce.timings["device_reruns"] == mce.timings["device_fallbacks"] == 1
+    # the fallback's host refine starts with its host prep, in reselect
+    assert [s[1] for s in mce.spans if s[0] == "host_prep"] == [
+        "reselect"], mce.spans
+    assert [s[1] for s in mce.spans if s[0] == "device_run"] == ["fused"]
